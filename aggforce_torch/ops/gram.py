@@ -1,0 +1,242 @@
+r"""Fused featurized design-row construction + per-site Gram.
+
+Counterpart of the JAX package's ``ops/pallas_gram.py``. The hot op of the
+featurized force-map fit is, per cg site s,
+
+    P_s = sum_{t,a} row(t,a)^T row(t,a),
+    row(t,a) = [ Fg[t,:,a] | Fg[t,g,a]*gz[t,s,g,k] + dph[t,s,g,k]*u[t,s,g,a] ]
+
+with gz the Gaussian basis of the group<->site distance, dph its scaled
+radial derivative (the divergence factor), and u the unit displacement.
+:func:`site_grams` runs it as the hand-written CUDA kernel
+``csrc/site_grams.cu``, which builds the rows from the raw group positions
+on chip; :func:`site_grams_plain` is the same arithmetic in plain torch, the
+CPU path and the kernel's oracle.
+
+Layout contract (as in the JAX package): feature index f in [0, G_pad) is
+the one-hot id block; f = G_pad + k*G_pad + g is basis function k of group g
+(k-major). Padded groups carry zero Fg and zero counts so their columns
+vanish; :func:`unpack_gram` permutes the valid block into the canonical
+g-major (f = g*K + k) layout of :mod:`aggforce_torch.qp.fusedfeat`.
+"""
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+_LIB_SOURCE = "site_grams.cu"
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
+    ctypes.c_void_p
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from . import _build
+
+    lib = _build.load(_LIB_SOURCE)
+    fn = lib.aggforce_site_grams
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_operands(
+    coords: torch.Tensor,  # (T, N, 3)
+    forces: torch.Tensor,  # (T, N, 3)
+    mask: torch.Tensor,  # (T,)
+    cmap_mat: torch.Tensor,  # (S, N)
+    group_mean: torch.Tensor,  # (G, N)
+    onehot: torch.Tensor,  # (N, G)
+    counts: torch.Tensor,  # (G,)
+    kbt,
+    n_basis: int,
+    centers: torch.Tensor,  # (K,)
+) -> Tuple[torch.Tensor, ...]:
+    """Group positions/forces + padded flat per-column params.
+
+    Returns (gpos, cg, fg_masked, centers_flat, kbt_counts_flat) in
+    component-major layout — (3, T, G_pad) / (S, 3, T) — with the group axis
+    zero-padded to a multiple of 16 (padded columns vanish because both fg
+    and counts are zero there).
+    """
+    g = group_mean.shape[0]
+    g_pad = max(16, -(-g // 16) * 16)
+    pad = g_pad - g
+    gpos = torch.einsum("gj,tjd->dtg", group_mean, coords)
+    cg = torch.einsum("sj,tjd->sdt", cmap_mat, coords).contiguous()
+    fg = torch.einsum("tja,jg->atg", forces, onehot)
+    fg = fg * mask[None, :, None]
+    gpos = torch.nn.functional.pad(gpos, (0, pad)).contiguous()
+    fg = torch.nn.functional.pad(fg, (0, pad)).contiguous()
+    # k-major flat layout: column k*G_pad + g
+    centers_flat = torch.repeat_interleave(centers, g_pad)
+    kbt_counts_flat = torch.nn.functional.pad(kbt * counts, (0, pad)).repeat(
+        n_basis
+    )
+    return gpos, cg, fg, centers_flat, kbt_counts_flat
+
+
+def _check_operands(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis):
+    """Raise unless the operands meet the kernel's contract."""
+    ops = {
+        "gpos": gpos,
+        "cg": cg,
+        "fg": fg,
+        "mask": mask,
+        "centers_flat": centers_flat,
+        "kbt_counts_flat": kbt_counts_flat,
+    }
+    device = gpos.device
+    for name, x in ops.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, gpos on {device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if gpos.ndim != 3 or gpos.shape[0] != 3:
+        raise ValueError(f"gpos must be (3, T, G_pad), got {tuple(gpos.shape)}")
+    _, t, g_pad = gpos.shape
+    if g_pad % 16 != 0:
+        raise ValueError(f"G_pad must be a multiple of 16, got {g_pad}")
+    if fg.shape != gpos.shape:
+        raise ValueError(f"fg must match gpos {tuple(gpos.shape)}")
+    if cg.ndim != 3 or cg.shape[1:] != (3, t):
+        raise ValueError(f"cg must be (S, 3, {t}), got {tuple(cg.shape)}")
+    if mask.shape != (t,):
+        raise ValueError(f"mask must be ({t},), got {tuple(mask.shape)}")
+    gk = g_pad * n_basis
+    if centers_flat.shape != (gk,) or kbt_counts_flat.shape != (gk,):
+        raise ValueError(f"per-column parameters must be ({gk},)")
+
+
+def site_grams(
+    gpos: torch.Tensor,  # (3, T, G_pad) — component-major
+    cg: torch.Tensor,  # (S, 3, T) — site-major
+    fg: torch.Tensor,  # (3, T, G_pad) — mask folded in by caller
+    mask: torch.Tensor,  # (T,)
+    centers_flat: torch.Tensor,  # (GK_pad,)
+    kbt_counts_flat: torch.Tensor,  # (GK_pad,)
+    n_basis: int,
+    width: float,
+    clip: float,
+) -> torch.Tensor:
+    """All-site featurized Grams: returns (S, K_pad, K_pad) float32.
+
+    CUDA tensors go to the hand-written kernel (``csrc/site_grams.cu``),
+    built on first use; each launch adds one to ``site_grams.launches``. CPU
+    tensors go to :func:`site_grams_plain`. Any T is taken; G_pad must be a
+    multiple of 16, and every operand float32, contiguous and on one device.
+    """
+    _check_operands(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis)
+    if gpos.device.type == "cpu":
+        return site_grams_plain(
+            gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, width,
+            clip,
+        )
+    if gpos.device.type != "cuda":
+        raise ValueError(f"site_grams runs on CUDA or CPU, not {gpos.device}")
+    _, t, g_pad = gpos.shape
+    s_dim = cg.shape[0]
+    k_pad = g_pad * (1 + n_basis)
+    out = torch.empty((s_dim, k_pad, k_pad), dtype=torch.float32, device=gpos.device)
+    with torch.cuda.device(gpos.device):
+        stream = torch.cuda.current_stream(gpos.device).cuda_stream
+        err = _library()(
+            gpos.data_ptr(), cg.data_ptr(), fg.data_ptr(), mask.data_ptr(),
+            centers_flat.data_ptr(), kbt_counts_flat.data_ptr(), out.data_ptr(),
+            s_dim, t, g_pad, n_basis, 1.0 / width, -2.0 / width, clip, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"site_grams kernel launch failed (cudaError {err})")
+    site_grams.launches += 1
+    return out
+
+
+site_grams.launches = 0
+
+
+def site_grams_plain(
+    gpos: torch.Tensor,
+    cg: torch.Tensor,
+    fg: torch.Tensor,
+    mask: torch.Tensor,
+    centers_flat: torch.Tensor,
+    kbt_counts_flat: torch.Tensor,
+    n_basis: int,
+    width: float,
+    clip: float,
+    t_chunk: int = 1024,
+) -> torch.Tensor:
+    """Plain-torch twin of the kernel (same layout and arithmetic).
+
+    A torch version of the JAX package's ``reference_site_grams``, in the
+    operands' dtype and chunked over ``t_chunk`` frames so the materialized
+    (S, 3*t_chunk, K_pad) rows stay bounded.
+    """
+    _, t, g_pad = gpos.shape
+    s_dim = cg.shape[0]
+    k_pad = g_pad * (1 + n_basis)
+    inv_w = 1.0 / width
+    out = torch.zeros((s_dim, k_pad, k_pad), dtype=gpos.dtype, device=gpos.device)
+    for lo in range(0, t, t_chunk):
+        hi = min(t, lo + t_chunk)
+        rows = design_rows(
+            gpos[:, lo:hi], cg[:, :, lo:hi], fg[:, lo:hi], mask[lo:hi],
+            centers_flat, kbt_counts_flat, n_basis, inv_w, clip,
+        )
+        out += torch.matmul(rows.transpose(1, 2), rows)
+    return out
+
+
+def design_rows(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, inv_w, clip):
+    """Materialized design rows (S, 3*T, K_pad) of a frame range.
+
+    Row a*T + t holds component a of frame t. The kernel never builds this
+    tensor; the plain twin does, one frame chunk at a time.
+    """
+    disp = gpos[None] - cg[..., None]  # (S, 3, t, G_pad)
+    d = torch.sqrt(disp[:, 0] * disp[:, 0] + disp[:, 1] * disp[:, 1] + disp[:, 2] * disp[:, 2])
+    inv_d = 1.0 / torch.clamp(d, min=1e-30)
+    drep = d.repeat(1, 1, n_basis)  # (S, t, GK_pad), k-major
+    offset = (drep - centers_flat) * inv_w
+    raw = torch.exp(-(offset * offset))
+    gz = torch.clamp(raw, min=clip) - clip
+    live = (raw > clip).to(raw.dtype)
+    dph = kbt_counts_flat * live * raw * (-2.0 * inv_w) * offset * mask[:, None]
+    comps = []
+    for a in range(3):
+        fg_a = fg[a].expand(disp.shape[0], -1, -1)  # (S, t, G_pad)
+        u_a = disp[:, a] * inv_d
+        row_gb = fg_a.repeat(1, 1, n_basis) * gz + dph * u_a.repeat(1, 1, n_basis)
+        comps.append(torch.cat([fg_a, row_gb], dim=2))  # (S, t, K_pad)
+    return torch.cat(comps, dim=1)
+
+
+def unpack_gram(gram_pad: torch.Tensor, g: int, n_basis: int) -> torch.Tensor:
+    """Extract + permute the valid block into the canonical g-major layout.
+
+    Kernel column for basis k of group gi sits at G_pad + k*G_pad + gi; the
+    canonical fused layout expects g + gi*n_basis + k. Written as
+    reshape/slice/transpose/concat (blocked data movement), not as a fancy
+    index, exactly as the JAX twin.
+    """
+    s = gram_pad.shape[0]
+    n = gram_pad.shape[-1]
+    g_pad = n // (1 + n_basis)
+
+    def permute_cols(x):  # reorder the LAST axis; x (s, r, n) -> (s, r, m)
+        r = x.shape[1]
+        blocks = x.reshape(s, r, 1 + n_basis, g_pad)[..., :g]
+        id_cols = blocks[:, :, 0, :]  # (s, r, g)
+        basis = blocks[:, :, 1:, :].transpose(2, 3)  # (s, r, g, n_basis)
+        return torch.cat([id_cols, basis.reshape(s, r, g * n_basis)], dim=-1)
+
+    cols = permute_cols(gram_pad)  # (s, n, m)
+    rows = permute_cols(cols.transpose(1, 2))  # (s, m, m)
+    return rows.transpose(1, 2).contiguous()
