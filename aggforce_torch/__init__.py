@@ -8,7 +8,9 @@ estimate the CG mean force.
 The public API mirrors the JAX package. Work runs on the CUDA card by
 default (``device=None`` means ``"cuda"``); pass ``device="cpu"`` to run on
 the host. The per-site featurized Gram, the hot op of the featurized fit,
-is a hand-written CUDA kernel (``csrc/site_grams.cu``) built on first use.
+is a hand-written CUDA kernel (``csrc/site_grams.cu``) built on first use;
+the sweep-scale site-blocked fit (``qp.fused_gb_linear_map_blocked``) runs
+a second one (``csrc/site_grams_tiled.cu``).
 
 Primary entry point: :func:`project_forces`.
 """

@@ -30,34 +30,23 @@
 //    blocks at that size, many times the 132 SMs. No frame split and no
 //    atomics are needed, and the result is the same from run to run.
 //  * CUDA blocks run in no order, so the TPU grid's sequential frame axis is
-//    a loop inside the block: for each chunk of 16 frames the block builds
-//    the tile's row slice and column slice of the design rows, for all three
-//    components, in shared memory straight from the raw operands (no design
-//    tensor reaches device memory), then accumulates outer products in fp32
-//    registers, a 4x4 micro-tile per thread. Diagonal tiles build one slice.
-//  * The frame sum is taken in two levels: each chunk's 48 products in fp32,
-//    the chunk sums in fp64 (16 additions per thread per chunk, against 768
-//    FMAs). With a single fp32 running sum over the 30,000 design rows of
-//    the main path the kernel differed from the plain torch version by
-//    9e-6 of the largest Gram entry on the card, and the fit magnifies Gram
-//    errors (see PERF.md).
+//    a loop inside the block (gram_tile.cuh): for each chunk of 16 frames
+//    the block builds the tile's row slice and column slice of the design
+//    rows, for all three components, in shared memory straight from the raw
+//    operands (no design tensor reaches device memory), then accumulates
+//    outer products in registers, with the chunk sums taken in fp64.
+//    Diagonal tiles build one slice.
 //  * Off-diagonal tiles write themselves and their transpose. The ragged
 //    frame edge and the ragged column edge are masked here, so any T and
 //    any K_pad are taken.
-//  * Each slice is addressed by its first column, so the same tile routine
-//    can later serve the basis-block-pair contract of `_gram_tiled_kernel`.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "gram_tile.cuh"
 
 namespace {
 
-constexpr int kTile = 64;            // output tile edge
-constexpr int kFrames = 16;          // frames per chunk
-constexpr int kRows = 3 * kFrames;   // design rows per chunk (x, y, z)
-constexpr int kThreads = 256;        // 16 x 16 threads
-constexpr int kMicro = 4;            // micro-tile edge per thread
+using gram_tile::kFrames;
+using gram_tile::kThreads;
+using gram_tile::kTile;
 
 struct GramArgs {
   const float* gpos;     // (3, T, G_pad) group positions
@@ -123,8 +112,8 @@ __device__ __forceinline__ void build_slice(const GramArgs& p,
 
 __global__ void __launch_bounds__(kThreads)
     site_grams_kernel(GramArgs p, float* __restrict__ out, int n_tiles) {
-  __shared__ __align__(16) float rows_i[kRows][kTile];
-  __shared__ __align__(16) float rows_j[kRows][kTile];
+  __shared__ __align__(16) float rows_i[gram_tile::kRows][kTile];
+  __shared__ __align__(16) float rows_j[gram_tile::kRows][kTile];
 
   // blockIdx.x enumerates the upper-triangle tiles (ti <= tj) row by row
   int ti = 0;
@@ -139,52 +128,15 @@ __global__ void __launch_bounds__(kThreads)
   const int j0 = tj * kTile;
   const int s = blockIdx.y;
   const float* cg_s = p.cg + static_cast<size_t>(s) * 3 * p.n_frames;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float(*cols)[kTile] = diag ? rows_i : rows_j;
 
-  double total[kMicro][kMicro] = {};  // fp64 sum of the fp32 chunk sums
-  for (int t0 = 0; t0 < p.n_frames; t0 += kFrames) {
-    build_slice(p, cg_s, t0, i0, rows_i);
-    if (!diag) build_slice(p, cg_s, t0, j0, rows_j);
-    __syncthreads();
-    float acc[kMicro][kMicro] = {};
-#pragma unroll 8
-    for (int k = 0; k < kRows; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&rows_i[k][ty * kMicro]);
-      const float4 b = *reinterpret_cast<const float4*>(&cols[k][tx * kMicro]);
-      const float av[kMicro] = {a.x, a.y, a.z, a.w};
-      const float bv[kMicro] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < kMicro; ++r) {
-#pragma unroll
-        for (int q = 0; q < kMicro; ++q) {
-          acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMicro; ++r) {
-#pragma unroll
-      for (int q = 0; q < kMicro; ++q) total[r][q] += acc[r][q];
-    }
-    __syncthreads();
-  }
-
-  float* o = out + static_cast<size_t>(s) * p.k_pad * p.k_pad;
-#pragma unroll
-  for (int r = 0; r < kMicro; ++r) {
-    const int i = i0 + ty * kMicro + r;
-#pragma unroll
-    for (int q = 0; q < kMicro; ++q) {
-      const int j = j0 + tx * kMicro + q;
-      if (i < p.k_pad && j < p.k_pad) {
-        const float v = static_cast<float>(total[r][q]);
-        o[static_cast<size_t>(i) * p.k_pad + j] = v;
-        if (!diag) o[static_cast<size_t>(j) * p.k_pad + i] = v;
-      }
-    }
-  }
+  double total[gram_tile::kMicro][gram_tile::kMicro] = {};
+  gram_tile::frame_sum(
+      p.n_frames, diag,
+      [&](int t0, float (*dst)[kTile]) { build_slice(p, cg_s, t0, i0, dst); },
+      [&](int t0, float (*dst)[kTile]) { build_slice(p, cg_s, t0, j0, dst); },
+      rows_i, rows_j, total);
+  gram_tile::store_tile(total, out + static_cast<size_t>(s) * p.k_pad * p.k_pad,
+                        p.k_pad, i0, j0, !diag);
 }
 
 }  // namespace

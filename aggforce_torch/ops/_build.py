@@ -3,9 +3,9 @@
 Each source under ``aggforce_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, on first
 use, and loaded with ``ctypes``. The libraries go to ``aggforce_torch/_build/``
-under a file name keyed by a hash of the source and the flags, so a stale
-library is never loaded. All sources are compiled in parallel, one ``nvcc``
-process each.
+under a file name keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a stale library is never loaded. All
+sources are compiled in parallel, one ``nvcc`` process each.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = ("site_grams.cu",)
+SOURCES = ("site_grams.cu", "site_grams_tiled.cu")
 
 NVCC_FLAGS = (
     "-gencode",
@@ -62,9 +62,16 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``source`` lives (keyed by content)."""
+    """Where the library built from ``source`` lives (keyed by content).
+
+    Every header under ``csrc/`` joins the key, so a header edit rebuilds
+    each source that may include it.
+    """
     digest = hashlib.sha256()
     digest.update((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     stem = Path(source).stem
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"

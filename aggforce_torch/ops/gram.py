@@ -13,6 +13,11 @@ radial derivative (the divergence factor), and u the unit displacement.
 on chip; :func:`site_grams_plain` is the same arithmetic in plain torch, the
 CPU path and the kernel's oracle.
 
+At sweep scale (K_pad ~ 9,000) :func:`site_grams_tiled` computes the same
+Grams one (G_pad, G_pad) basis-block pair at a time with the second
+hand-written kernel ``csrc/site_grams_tiled.cu``; its plain twin is
+:func:`site_grams_tiled_plain`.
+
 Layout contract (as in the JAX package): feature index f in [0, G_pad) is
 the one-hot id block; f = G_pad + k*G_pad + g is basis function k of group g
 (k-major). Padded groups carry zero Fg and zero counts so their columns
@@ -26,21 +31,34 @@ from typing import Tuple
 
 import torch
 
-_LIB_SOURCE = "site_grams.cu"
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
     ctypes.c_void_p
 ]
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
+def _kernel(source: str, symbol: str):
+    """The C entry ``symbol`` of the library built from ``csrc/<source>``."""
     from . import _build
 
-    lib = _build.load(_LIB_SOURCE)
-    fn = lib.aggforce_site_grams
+    fn = getattr(_build.load(source), symbol)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(source, symbol, out, gpos, cg, fg, mask, centers, kcounts, n_basis, width, clip):
+    """Launch a Gram kernel on the operands' current stream into ``out``."""
+    with torch.cuda.device(gpos.device):
+        stream = torch.cuda.current_stream(gpos.device).cuda_stream
+        err = _kernel(source, symbol)(
+            gpos.data_ptr(), cg.data_ptr(), fg.data_ptr(), mask.data_ptr(),
+            centers.data_ptr(), kcounts.data_ptr(), out.data_ptr(),
+            cg.shape[0], gpos.shape[1], gpos.shape[2], n_basis, 1.0 / width,
+            -2.0 / width, clip, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed (cudaError {err})")
 
 
 def pack_operands(
@@ -79,16 +97,15 @@ def pack_operands(
     return gpos, cg, fg, centers_flat, kbt_counts_flat
 
 
-def _check_operands(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis):
-    """Raise unless the operands meet the kernel's contract."""
-    ops = {
-        "gpos": gpos,
-        "cg": cg,
-        "fg": fg,
-        "mask": mask,
-        "centers_flat": centers_flat,
-        "kbt_counts_flat": kbt_counts_flat,
-    }
+def _check_operands(gpos, cg, fg, mask, **params):
+    """Raise unless the operands meet the Gram kernels' common contract.
+
+    ``params`` are the per-column (or per-basis, per-group) parameter
+    vectors by name, with the shape each must have in ``(name, shape)``
+    pairs; the caller derives those shapes from G_pad and n_basis.
+    """
+    ops = {"gpos": gpos, "cg": cg, "fg": fg, "mask": mask}
+    ops.update({name: x for name, (x, _) in params.items()})
     device = gpos.device
     for name, x in ops.items():
         if not isinstance(x, torch.Tensor):
@@ -110,9 +127,9 @@ def _check_operands(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis):
         raise ValueError(f"cg must be (S, 3, {t}), got {tuple(cg.shape)}")
     if mask.shape != (t,):
         raise ValueError(f"mask must be ({t},), got {tuple(mask.shape)}")
-    gk = g_pad * n_basis
-    if centers_flat.shape != (gk,) or kbt_counts_flat.shape != (gk,):
-        raise ValueError(f"per-column parameters must be ({gk},)")
+    for name, (x, shape) in params.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
 
 
 def site_grams(
@@ -133,27 +150,21 @@ def site_grams(
     tensors go to :func:`site_grams_plain`. Any T is taken; G_pad must be a
     multiple of 16, and every operand float32, contiguous and on one device.
     """
-    _check_operands(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis)
+    gk = (gpos.shape[-1] * n_basis,)
+    _check_operands(
+        gpos, cg, fg, mask, centers_flat=(centers_flat, gk),
+        kbt_counts_flat=(kbt_counts_flat, gk),
+    )
+    args = (gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, width, clip)
     if gpos.device.type == "cpu":
-        return site_grams_plain(
-            gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, width,
-            clip,
-        )
+        return site_grams_plain(*args)
     if gpos.device.type != "cuda":
         raise ValueError(f"site_grams runs on CUDA or CPU, not {gpos.device}")
-    _, t, g_pad = gpos.shape
-    s_dim = cg.shape[0]
-    k_pad = g_pad * (1 + n_basis)
-    out = torch.empty((s_dim, k_pad, k_pad), dtype=torch.float32, device=gpos.device)
-    with torch.cuda.device(gpos.device):
-        stream = torch.cuda.current_stream(gpos.device).cuda_stream
-        err = _library()(
-            gpos.data_ptr(), cg.data_ptr(), fg.data_ptr(), mask.data_ptr(),
-            centers_flat.data_ptr(), kbt_counts_flat.data_ptr(), out.data_ptr(),
-            s_dim, t, g_pad, n_basis, 1.0 / width, -2.0 / width, clip, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"site_grams kernel launch failed (cudaError {err})")
+    k_pad = gpos.shape[2] * (1 + n_basis)
+    out = torch.empty(
+        (cg.shape[0], k_pad, k_pad), dtype=torch.float32, device=gpos.device
+    )
+    _launch("site_grams.cu", "aggforce_site_grams", out, *args)
     site_grams.launches += 1
     return out
 
@@ -216,6 +227,156 @@ def design_rows(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, inv_
         row_gb = fg_a.repeat(1, 1, n_basis) * gz + dph * u_a.repeat(1, 1, n_basis)
         comps.append(torch.cat([fg_a, row_gb], dim=2))  # (S, t, K_pad)
     return torch.cat(comps, dim=1)
+
+
+def block_pairs(n_basis: int):
+    """The tile contract's pair axis: basis-block pairs (bi <= bj) of the
+    B = 1 + n_basis blocks, numbered row by row."""
+    b = 1 + n_basis
+    return [(i, j) for i in range(b) for j in range(i, b)]
+
+
+def site_grams_tiled_blocks(
+    gpos: torch.Tensor,  # (3, T, G_pad) — component-major
+    cg: torch.Tensor,  # (S, 3, T) — site-major
+    fg: torch.Tensor,  # (3, T, G_pad) — mask folded in by caller
+    mask: torch.Tensor,  # (T,)
+    centers: torch.Tensor,  # (n_basis,) raw basis centers
+    kbt_counts: torch.Tensor,  # (G_pad,) kbt * group size
+    n_basis: int,
+    width: float,
+    clip: float,
+) -> torch.Tensor:
+    """Basis-block-pair Gram tiles: returns (S, n_pairs, G_pad, G_pad) float32.
+
+    Tile p = (bi, bj) of :func:`block_pairs` is sum_{t,a} row_bi^T row_bj,
+    where block 0 of a design row is the id columns and block b >= 1 basis
+    center b - 1. CUDA tensors go to the hand-written kernel
+    (``csrc/site_grams_tiled.cu``), built on first use; each launch adds one
+    to ``site_grams_tiled.launches``. CPU tensors go to
+    :func:`site_grams_tiled_plain`. Any T is taken; G_pad must be a multiple
+    of 16, and every operand float32, contiguous and on one device.
+    """
+    _check_operands(
+        gpos, cg, fg, mask, centers=(centers, (n_basis,)),
+        kbt_counts=(kbt_counts, (gpos.shape[-1],)),
+    )
+    args = (gpos, cg, fg, mask, centers, kbt_counts, n_basis, width, clip)
+    if gpos.device.type == "cpu":
+        return site_grams_tiled_plain(*args)
+    if gpos.device.type != "cuda":
+        raise ValueError(f"site_grams_tiled runs on CUDA or CPU, not {gpos.device}")
+    g_pad = gpos.shape[2]
+    out = torch.empty(
+        (cg.shape[0], len(block_pairs(n_basis)), g_pad, g_pad),
+        dtype=torch.float32, device=gpos.device,
+    )
+    _launch("site_grams_tiled.cu", "aggforce_site_grams_tiled", out, *args)
+    site_grams_tiled.launches += 1
+    return out
+
+
+def site_grams_tiled(
+    gpos: torch.Tensor,
+    cg: torch.Tensor,
+    fg: torch.Tensor,
+    mask: torch.Tensor,
+    centers: torch.Tensor,
+    kbt_counts: torch.Tensor,
+    n_basis: int,
+    width: float,
+    clip: float,
+) -> torch.Tensor:
+    """Sweep-scale per-site Grams, Gram-tiled: returns (S, K_pad, K_pad).
+
+    The contract of the JAX package's ``pallas_site_grams_tiled``: the same
+    Grams as :func:`site_grams` in the same k-major layout, but computed one
+    (G_pad, G_pad) upper-triangle basis-block pair at a time
+    (:func:`site_grams_tiled_blocks`), so no K_pad-wide row or accumulator
+    exists and K_pad ~ 9,000 runs. ``centers`` are the raw (n_basis,)
+    centers and ``kbt_counts`` the (G_pad,) per-group weights, neither
+    flat-tiled. The JAX version's ``t_block`` is gone: it sized TPU VMEM
+    windows, and the CUDA kernel masks the ragged frame edge itself, so any
+    T is taken and nothing is padded.
+    """
+    return mirror_tiles(
+        site_grams_tiled_blocks(
+            gpos, cg, fg, mask, centers, kbt_counts, n_basis, width, clip
+        ),
+        n_basis,
+    )
+
+
+site_grams_tiled.launches = 0
+
+
+def site_grams_tiled_plain(
+    gpos: torch.Tensor,
+    cg: torch.Tensor,
+    fg: torch.Tensor,
+    mask: torch.Tensor,
+    centers: torch.Tensor,
+    kbt_counts: torch.Tensor,
+    n_basis: int,
+    width: float,
+    clip: float,
+    t_chunk: int = 1024,
+) -> torch.Tensor:
+    """Plain-torch twin of the tiled kernel: the same (S, n_pairs, G_pad,
+    G_pad) tiles from materialized (S, 3*t_chunk, G_pad) block rows
+    (:func:`block_rows`), one frame chunk at a time, in the operands' dtype."""
+    _, t, g_pad = gpos.shape
+    pairs = block_pairs(n_basis)
+    out = torch.zeros(
+        (cg.shape[0], len(pairs), g_pad, g_pad), dtype=gpos.dtype, device=gpos.device
+    )
+    for lo in range(0, t, t_chunk):
+        hi = min(t, lo + t_chunk)
+        rows = block_rows(
+            gpos[:, lo:hi], cg[:, :, lo:hi], fg[:, lo:hi], mask[lo:hi], centers,
+            kbt_counts, n_basis, 1.0 / width, clip,
+        )
+        for p, (i, j) in enumerate(pairs):
+            out[:, p] += torch.matmul(rows[i].transpose(1, 2), rows[j])
+    return out
+
+
+def block_rows(gpos, cg, fg, mask, centers, kbt_counts, n_basis, inv_w, clip):
+    """Materialized design rows of a frame range, one (S, 3*t, G_pad) tensor
+    per basis block (block 0 the id columns). Row a*t + frame holds
+    component a of that frame."""
+    s_dim, g_pad = cg.shape[0], gpos.shape[2]
+    disp = gpos[None] - cg[..., None]  # (S, 3, t, G_pad)
+    d = torch.sqrt(disp[:, 0] * disp[:, 0] + disp[:, 1] * disp[:, 1] + disp[:, 2] * disp[:, 2])
+    u = disp * (1.0 / torch.clamp(d, min=1e-30))[:, None]
+    fg_s = fg.expand(s_dim, -1, -1, -1)
+    rows = [fg_s.reshape(s_dim, -1, g_pad)]
+    for k in range(n_basis):
+        offset = (d - centers[k]) * inv_w
+        raw = torch.exp(-(offset * offset))
+        gz = torch.clamp(raw, min=clip) - clip
+        live = (raw > clip).to(raw.dtype)
+        dph = kbt_counts * live * raw * (-2.0 * inv_w) * offset * mask[:, None]
+        rows.append((fg_s * gz[:, None] + dph[:, None] * u).reshape(s_dim, -1, g_pad))
+    return rows
+
+
+def mirror_tiles(tiles: torch.Tensor, n_basis: int) -> torch.Tensor:
+    """Reassemble (S, n_pairs, G_pad, G_pad) tiles into the flat k-major
+    (S, K_pad, K_pad) square that :func:`unpack_gram` reads.
+
+    Block pair (bj, bi) below the diagonal is the transpose of its upper
+    twin. The JAX version does this with one gather and a ``where``; here it
+    is one strided copy per block, the same data movement into one output.
+    """
+    s, _, g_pad, _ = tiles.shape
+    b = 1 + n_basis
+    full = tiles.new_empty((s, b, g_pad, b, g_pad))
+    for p, (i, j) in enumerate(block_pairs(n_basis)):
+        full[:, i, :, j] = tiles[:, p]
+        if i != j:
+            full[:, j, :, i] = tiles[:, p].transpose(1, 2)
+    return full.reshape(s, b * g_pad, b * g_pad)
 
 
 def unpack_gram(gram_pad: torch.Tensor, g: int, n_basis: int) -> torch.Tensor:

@@ -10,4 +10,9 @@ from .featlinearmap import (
     multifeaturize,
 )
 from .feat import gb_feat
-from .fusedfeat import GBFeatSpec, FusedGBMap, fused_gb_linear_map
+from .fusedfeat import (
+    GBFeatSpec,
+    FusedGBMap,
+    fused_gb_linear_map,
+    fused_gb_linear_map_blocked,
+)

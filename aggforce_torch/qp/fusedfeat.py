@@ -20,6 +20,8 @@ geometry once and emits the mapped forces directly (FusedGBMap.__call__),
 with the protocol-compatible scale/trans closures kept for CLAMap API parity.
 """
 
+import os
+import time
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Optional, Tuple, Union
@@ -30,7 +32,15 @@ import torch
 from ..constraints import Constraints
 from ..map import CLAFTMap, CLAMap, LinearMap, TLinearMap
 from ..ops.eqp import batched_eqp_solve_shared, eqp_solve_host
-from ..ops.gram import pack_operands, site_grams, site_grams_plain, unpack_gram
+from ..ops.gram import (
+    mirror_tiles,
+    pack_operands,
+    site_grams,
+    site_grams_plain,
+    site_grams_tiled,
+    site_grams_tiled_plain,
+    unpack_gram,
+)
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, resolve_device
 from .featlinearmap import id_feat
@@ -121,22 +131,33 @@ def _assemble_constraint_system(
     counts: torch.Tensor,
     centers: torch.Tensor,
     spec: GBFeatSpec,
+    cmap_rows: Optional[torch.Tensor] = None,
+    site_sel: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-site constraint rows (S, tc*S, K_exp) and targets (S, tc*S).
+    """Per-site constraint rows (Sb, tc*S, K_exp) and targets (Sb, tc*S).
 
-    The orthogonality system of one site spans all CG sites: its weight
-    function must integrate to delta against every site's configurational
-    map. Row (t, c) of site s targets 1 when c == s.
+    The orthogonality system of one fitted site spans all S CG sites: its
+    weight function must integrate to delta against every site's
+    configurational map, so the row axis is always the full ``cmap_mat``.
+    ``cmap_rows`` (Sb, N) restricts only which sites are fitted (a site
+    block), and ``site_sel`` (Sb, S) is the one-hot of each block row's
+    global site index: row (t, c) of block row s targets site_sel[s, c].
+    The default is the full map (Sb == S, site_sel == I).
     """
-    cg_constr = torch.einsum("sj,tjd->tsd", cmap_mat, constr_coords)
+    rows_map = cmap_mat if cmap_rows is None else cmap_rows
+    cg_constr = torch.einsum("sj,tjd->tsd", rows_map, constr_coords)
     a_rows = _constraint_rows(
         constr_coords, cg_constr, cmap_mat, group_mean, onehot, counts,
         centers, spec,
     )
-    s_dim = cmap_mat.shape[0]
+    s_all, s_blk = cmap_mat.shape[0], rows_map.shape[0]
     tc = constr_coords.shape[0]
-    eye = torch.eye(s_dim, dtype=constr_coords.dtype, device=constr_coords.device)
-    b = eye[:, None, :].expand(s_dim, tc, s_dim).reshape(s_dim, tc * s_dim)
+    sel = (
+        torch.eye(s_all, dtype=constr_coords.dtype, device=constr_coords.device)
+        if site_sel is None
+        else site_sel.to(constr_coords.dtype)
+    )
+    b = sel[:, None, :].expand(s_blk, tc, s_all).reshape(s_blk, tc * s_all)
     return a_rows, b
 
 
@@ -154,25 +175,33 @@ def _fit_parts(
     l2_regularization: float,
     spec: GBFeatSpec,
     gram_fn: Callable,
+    tiled: bool = False,
+    cmap_rows: Optional[torch.Tensor] = None,
+    site_sel: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-site QP assembly: (gram, constraint rows, targets).
 
     The counterpart of the JAX package's ``_pallas_fit_parts``: pack the
-    group operands, run the fused Gram ``gram_fn`` (``site_grams`` or its
-    plain twin, see :func:`_gram_function`), permute it into the canonical
-    layout and add the l2 term. The kernel masks the ragged frame edge
-    itself, so nothing is padded.
+    group operands, run the fused Gram ``gram_fn`` (see
+    :func:`_gram_function`), permute it into the canonical layout and add
+    the l2 term. The kernels mask the ragged frame edge themselves, so
+    nothing is padded. ``tiled`` marks a Gram of the tiled contract, which
+    takes the raw per-basis centers and per-group weights instead of the
+    flat per-column ones. ``cmap_rows``/``site_sel`` fit one site block
+    (see :func:`_assemble_constraint_system`).
     """
+    rows_map = cmap_mat if cmap_rows is None else cmap_rows
     gpos, cgp, fgp, centers_flat, kcounts = pack_operands(
-        coords, forces, mask, cmap_mat, group_mean, onehot, counts, kbt,
+        coords, forces, mask, rows_map, group_mean, onehot, counts, kbt,
         spec.n_basis, centers,
     )
+    params = (centers, kcounts[: gpos.shape[2]]) if tiled else (centers_flat, kcounts)
     gram_pad = gram_fn(
-        gpos, cgp, fgp, mask, centers_flat, kcounts, spec.n_basis, spec.width,
-        spec.clip,
+        gpos, cgp, fgp, mask, *params, spec.n_basis, spec.width, spec.clip
     )
     g = group_mean.shape[0]
     gram = unpack_gram(gram_pad, g, spec.n_basis)
+    del gram_pad  # a sweep block's padded square is 2 GB; free it before the l2 copy
     if not spec.include_id:
         gram = gram[:, g:, g:]
     k_exp = gram.shape[-1]
@@ -180,7 +209,8 @@ def _fit_parts(
         k_exp, dtype=gram.dtype, device=gram.device
     )
     a_rows, b = _assemble_constraint_system(
-        constr_coords, cmap_mat, group_mean, onehot, counts, centers, spec
+        constr_coords, cmap_mat, group_mean, onehot, counts, centers, spec,
+        cmap_rows=cmap_rows, site_sel=site_sel,
     )
     return gram, a_rows, b
 
@@ -192,19 +222,25 @@ def _fit_coefs(
     cmap_mat, group_mean, onehot, counts, centers, kbt, l2_regularization,
     spec: GBFeatSpec, solver_delta: float, solver_iters: int,
     gram_fn: Callable,
+    tiled: bool = False,
+    cmap_rows: Optional[torch.Tensor] = None,
+    site_sel: Optional[torch.Tensor] = None,
 ):
-    """Whole fit: constraint-frame gather, Gram/constraint assembly and the
-    shared-factor KKT solve (the JAX package's ``_fit_coefs_e2e`` and
-    ``_fit_coefs`` in one).
+    """Whole fit of all sites, or of one site block: constraint-frame
+    gather, Gram/constraint assembly and the shared-factor KKT solve (the
+    JAX package's ``_fit_coefs_e2e`` and ``_fit_coefs`` in one, and with
+    ``cmap_rows``/``site_sel`` its ``_siteblock_fit_body`` and
+    ``_fit_coefs_siteblock_e2e``).
 
-    Returns (coefs (S, K_exp), max residual, gram, a_rows, b), all on the
-    device; the QP pieces are fetched only if the float64 escalation needs
-    them.
+    Returns (coefs (Sb, K_exp), per-site residuals (Sb,), gram, a_rows, b),
+    all on the device; the QP pieces are fetched only if the float64
+    escalation needs them.
     """
     mask = torch.ones(coords.shape[0], dtype=coords.dtype, device=coords.device)
     gram, a_rows, b = _fit_parts(
         coords, forces, mask, coords[frame_idx], cmap_mat, group_mean, onehot,
-        counts, centers, kbt, l2_regularization, spec, gram_fn,
+        counts, centers, kbt, l2_regularization, spec, gram_fn, tiled,
+        cmap_rows, site_sel,
     )
     # the same shared-factor solver the batch path uses (with a fit-batch
     # of one), so single fits and batched fits agree per problem
@@ -212,7 +248,7 @@ def _fit_coefs(
         gram, a_rows[None], b[None, ..., None], delta=solver_delta,
         iters=solver_iters, return_resid=True,
     )
-    return coefs[0, ..., 0], torch.amax(resids), gram, a_rows, b
+    return coefs[0, ..., 0], resids[0], gram, a_rows, b
 
 
 def _fused_apply(
@@ -437,26 +473,82 @@ def group_factorization(
 
 
 def _gram_function(
-    use_kernel: Union[bool, str], device: torch.device, chunk_size: int
+    use_kernel: Union[bool, str], device: torch.device, chunk_size: int,
+    tiled: bool = False,
 ) -> Callable:
-    """The per-site Gram of a fit on ``device``.
+    """The per-site Gram of a fit on ``device``, as the flat k-major square.
 
-    ``"auto"`` is the kernel wrapper ``site_grams``, which launches the CUDA
-    kernel for CUDA tensors and runs the plain twin for CPU tensors.
-    ``True`` demands the kernel and so raises off the card; ``False`` is the
-    plain twin, chunked over ``chunk_size`` frames.
+    ``"auto"`` is the kernel wrapper (``site_grams``, or ``site_grams_tiled``
+    with ``tiled``), which launches the CUDA kernel for CUDA tensors and runs
+    the plain twin for CPU tensors. ``True`` demands the kernel and so raises
+    off the card; ``False`` is the plain twin, chunked over ``chunk_size``
+    frames.
     """
+    kernel = site_grams_tiled if tiled else site_grams
     if use_kernel == "auto":
-        return site_grams
+        return kernel
     if use_kernel is True:
         if device.type != "cuda":
             raise ValueError(
                 f"use_kernel=True needs a CUDA device; the fit runs on {device}"
             )
-        return site_grams
+        return kernel
     if use_kernel is False:
-        return partial(site_grams_plain, t_chunk=chunk_size)
+        if not tiled:
+            return partial(site_grams_plain, t_chunk=chunk_size)
+
+        def plain_tiled(gpos, cg, fg, mask, centers, kbt_counts, n_basis, width, clip):
+            tiles = site_grams_tiled_plain(
+                gpos, cg, fg, mask, centers, kbt_counts, n_basis, width, clip,
+                t_chunk=chunk_size,
+            )
+            return mirror_tiles(tiles, n_basis)
+
+        return plain_tiled
     raise ValueError(f"use_kernel must be 'auto', True or False, not {use_kernel!r}")
+
+
+def _host_solve(gram, a_rows, b):
+    """Float64 LAPACK solves of a stack of sites' QPs, the escalation of
+    unconverged float32 solves. Returns (coefs (n, K_exp) float32, each
+    site's max equilibrated constraint violation (n,))."""
+    gram_h = gram.cpu().numpy().astype(np.float64)
+    rows_h = a_rows.cpu().numpy().astype(np.float64)
+    b_h = b.cpu().numpy().astype(np.float64)
+    coefs = np.stack(
+        [
+            eqp_solve_host(gram_h[s], rows_h[s], b_h[s][:, None])[:, 0]
+            for s in range(gram_h.shape[0])
+        ]
+    ).astype(np.float32)
+    row_norm = np.linalg.norm(rows_h, axis=2, keepdims=True) + 1e-300
+    resid = np.max(
+        np.abs(
+            b_h / row_norm[..., 0]
+            - np.einsum("smn,sn->sm", rows_h / row_norm, coefs)
+        ),
+        axis=1,
+    )
+    return coefs, resid
+
+
+def _wrap_fused_map(coefs, coord_map, onehot, centers, kbt, spec, tags, device) -> CLAFTMap:
+    """The fitted coefficients (a device tensor or numpy) as a CLAFTMap."""
+    force_map = FusedGBMap(
+        coefs=coefs,
+        cmap_mat=np.asarray(coord_map.standard_matrix, dtype=np.float32),
+        onehot=onehot,
+        centers=centers,
+        kbt=kbt,
+        spec=spec,
+        tags=tags,
+        device=device,
+    )
+    # device coordinate map so tensor trajectories map without a host
+    # round-trip (numpy in -> numpy out is preserved)
+    if isinstance(coord_map, LinearMap) and not isinstance(coord_map, TLinearMap):
+        coord_map = TLinearMap.from_linearmap(coord_map, device=device)
+    return CLAFTMap(coord_map=coord_map, force_map=force_map)
 
 
 def _package_fused_map(
@@ -473,47 +565,18 @@ def _package_fused_map(
         # f32 solves on ill-conditioned feature Grams can fail outright
         # (non-finite) or converge past tolerance while staying finite;
         # either way every site's solve goes to the float64 LAPACK oracle
-        gram_h = gram.cpu().numpy().astype(np.float64)
-        rows_h = a_rows.cpu().numpy().astype(np.float64)
-        b_h = b.cpu().numpy().astype(np.float64)
-        coefs_np = np.stack(
-            [
-                eqp_solve_host(gram_h[s], rows_h[s], b_h[s][:, None])[:, 0]
-                for s in range(gram_h.shape[0])
-            ]
-        ).astype(np.float32)
-        row_norm = np.linalg.norm(rows_h, axis=2, keepdims=True) + 1e-300
-        resid_val = float(
-            np.max(
-                np.abs(
-                    b_h / row_norm[..., 0]
-                    - np.einsum("smn,sn->sm", rows_h / row_norm, coefs_np)
-                )
-            )
-        )
+        coefs_np, resid = _host_solve(gram, a_rows, b)
+        resid_val = float(resid.max())
     if not np.all(np.isfinite(coefs_np)):
         raise ValueError("Map optimization failed.")
-    force_map = FusedGBMap(
+    return _wrap_fused_map(
         # the device coefficients when the f32 solve stood; escalated fits
         # upload their f64-refined values
-        coefs=coefs_np if escalated else coefs,
-        cmap_mat=np.asarray(coord_map.standard_matrix, dtype=np.float32),
-        onehot=onehot,
-        centers=centers,
-        kbt=kbt,
-        spec=spec,
-        tags={
-            "coef_list": list(coefs_np),
-            "solver_resid": resid_val,
-            "escalated": escalated,
-        },
-        device=device,
+        coefs_np if escalated else coefs,
+        coord_map, onehot, centers, kbt, spec,
+        {"coef_list": list(coefs_np), "solver_resid": resid_val, "escalated": escalated},
+        device,
     )
-    # device coordinate map so tensor trajectories map without a host
-    # round-trip (numpy in -> numpy out is preserved)
-    if isinstance(coord_map, LinearMap) and not isinstance(coord_map, TLinearMap):
-        coord_map = TLinearMap.from_linearmap(coord_map, device=device)
-    return CLAFTMap(coord_map=coord_map, force_map=force_map)
 
 
 def fused_gb_linear_map(
@@ -573,7 +636,7 @@ def fused_gb_linear_map(
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
-    coefs, solver_resid, gram, a_rows, b = _fit_coefs(
+    coefs, resids, gram, a_rows, b = _fit_coefs(
         f32(traj.coords),
         f32(traj.forces),
         torch.as_tensor(frame_idx, device=dev),
@@ -590,6 +653,139 @@ def fused_gb_linear_map(
         gram_fn,
     )
     return _package_fused_map(
-        coefs, solver_resid, gram, a_rows, b, coord_map, onehot, centers,
+        coefs, torch.amax(resids), gram, a_rows, b, coord_map, onehot, centers,
         kbt, spec, resid_tol, dev,
+    )
+
+
+def fused_gb_linear_map_blocked(
+    traj: Trajectory,
+    coord_map: LinearMap,
+    kbt: float,
+    spec: GBFeatSpec,
+    constraints: Optional[Constraints] = None,
+    n_constraint_frames: int = 20,
+    l2_regularization: float = 1e1,
+    chunk_size: int = 2048,
+    constraint_rng: Optional[np.random.Generator] = None,
+    solver_delta: float = 1e-6,
+    solver_iters: int = 40,
+    resid_tol: float = 1e-4,
+    site_block: int = 2,
+    use_kernel: Union[bool, str] = "auto",
+    mesh=None,
+    device: DeviceLike = None,
+) -> CLAFTMap:
+    """Site-blocked featurized fit for solvated-system (sweep) scale.
+
+    The one-program fit (:func:`fused_gb_linear_map`) holds the full
+    (S, K_exp, K_exp) Gram stack; with K_exp = G*(1+n_basis) that is
+    S*K_exp^2*4 bytes plus the solver's copies, 21 GB of Grams alone at the
+    sweep geometry (1,500 atoms, K_exp = 9,000, S = 66). The per-site QPs are
+    independent, so fitting ``site_block`` sites at a time is exact: each
+    block's Gram, constraint system and solve are the slices the unblocked
+    fit would produce, and peak device memory is bounded by the block. The
+    last block is padded by repeating its final site, and the padding is
+    dropped.
+
+    The Gram of a block is the tiled one (``ops.gram.site_grams_tiled``): one
+    (G_pad, G_pad) basis-block pair at a time, so no K_pad-wide row exists.
+    ``use_kernel`` selects it as in :func:`fused_gb_linear_map`: ``"auto"``
+    runs the hand-written CUDA kernel on a CUDA device and its plain twin on
+    the CPU, ``False`` forces the plain twin over ``chunk_size``-frame
+    chunks, ``True`` off the card raises. ``device`` is where the fit runs.
+
+    Block k+1 is computed before block k's results are drained (fetched,
+    checked and escalated), a depth-1 pipeline; ``AGGFORCE_SWEEP_PIPELINE=0``
+    drains every block at once instead. Both give the same coefficients.
+
+    Escalation is per site, by design: a site whose float32 solve is
+    non-finite or misses ``resid_tol`` (NaN-aware) is re-solved by the
+    float64 LAPACK oracle, and converged sites keep their device results.
+    ``tags["solver_resid"]`` is the max residual over sites after
+    escalation, ``tags["escalated"]`` the number of escalated sites and
+    ``tags["escalation_seconds"]`` the host time their solves took.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
+        )
+    if constraints is None:
+        constraints = set()
+    dev = resolve_device(device, traj.coords, traj.forces)
+    gram_fn = _gram_function(use_kernel, dev, chunk_size, tiled=True)
+    geom = group_factorization(coord_map, spec, constraints)
+    onehot, centers = geom["onehot"], geom["centers"]
+
+    t = len(traj)
+    rng = constraint_rng if constraint_rng is not None else np.random.default_rng()
+    n_constraint_frames = min(n_constraint_frames, t)
+    frame_idx = rng.choice(t, size=n_constraint_frames, replace=False)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    cmap_np = np.asarray(coord_map.standard_matrix, dtype=np.float32)
+    s_all = cmap_np.shape[0]
+    sb = max(1, min(site_block, s_all))
+    coords, forces = f32(traj.coords), f32(traj.forces)
+    frame_idx_dev = torch.as_tensor(frame_idx, device=dev)
+    common = (
+        f32(cmap_np), f32(geom["group_mean"]), f32(onehot), f32(geom["counts"]),
+        f32(centers), float(kbt), float(l2_regularization), spec, solver_delta,
+        solver_iters, gram_fn,
+    )
+    pipelined = os.environ.get("AGGFORCE_SWEEP_PIPELINE", "1") == "1"
+    coefs_blocks = []
+    resid_max = 0.0
+    escalated = 0
+    escalation_s = 0.0
+
+    def drain(entry) -> None:
+        nonlocal resid_max, escalated, escalation_s
+        idx, coefs_b, resid_b, gram_b, rows_b, b_b = entry
+        coefs_np = np.array(coefs_b.cpu())[: len(idx)]
+        resid_np = np.array(resid_b.cpu())[: len(idx)]
+        bad = ~np.isfinite(coefs_np).all(axis=1) | ~(resid_np <= resid_tol)  # NaN-aware
+        if bad.any():
+            t0 = time.perf_counter()
+            sel = torch.as_tensor(np.nonzero(bad)[0], device=gram_b.device)
+            coefs_np[bad], resid_np[bad] = _host_solve(gram_b[sel], rows_b[sel], b_b[sel])
+            escalated += int(bad.sum())
+            escalation_s += time.perf_counter() - t0
+        coefs_blocks.append(coefs_np)
+        resid_max = max(resid_max, float(resid_np.max()))
+
+    pending = None
+    for s0 in range(0, s_all, sb):
+        idx = np.arange(s0, min(s0 + sb, s_all))
+        pad_idx = np.concatenate([idx, np.repeat(idx[-1:], sb - len(idx))])
+        sel = np.zeros((sb, s_all), dtype=np.float32)
+        sel[np.arange(sb), pad_idx] = 1.0
+        entry = (idx,) + _fit_coefs(
+            coords, forces, frame_idx_dev, *common, tiled=True,
+            cmap_rows=f32(cmap_np[pad_idx]), site_sel=f32(sel),
+        )
+        if pending is not None:
+            drain(pending)
+            pending = None
+        if pipelined:
+            pending = entry
+        else:
+            drain(entry)
+        del entry
+    if pending is not None:
+        drain(pending)
+    coefs_all = np.concatenate(coefs_blocks, axis=0)
+    if not np.all(np.isfinite(coefs_all)):
+        raise ValueError("Map optimization failed.")
+    return _wrap_fused_map(
+        coefs_all, coord_map, onehot, centers, kbt, spec,
+        {
+            "coef_list": list(coefs_all),
+            "solver_resid": resid_max,
+            "escalated": escalated,
+            "escalation_seconds": escalation_s,
+        },
+        dev,
     )

@@ -18,17 +18,28 @@ fails:
    config #3 (175 atoms, 30 constraint pairs, 10 cg sites, n_basis=7):
    the kernel must have launched, the mapped forces must be finite and the
    constraints met; the kernel fit's and the plain fit's objectives must
-   lie near float64 witnesses (see ``fit_checks``); a small input holds the
-   kernel and plain fits' mapped forces to 2e-3 * mean|f|. A planted fault
-   (a Gram without the divergence term) must fail the Gram and the
-   objective gates;
+   lie near float64 witnesses (see ``fit_checks``), and so must the
+   site-blocked fit (``site_block=3``, a ragged last block); a small input
+   holds the kernel fit, the plain fit and the blocked fit to
+   2e-3 * mean|f| of each other. A planted fault (a Gram without the
+   divergence term) must fail the Gram and the objective gates;
 5. times: first fit, steady-state fits and a profiled fit's device time by
    kernel, each kernel and its plain version and library yardstick, peak
    device memory;
-6. one JSON line listing every kernel; the last line is the result.
+6. the sweep path: ``fused_gb_linear_map_blocked`` at the full sweep width
+   (1,500 atoms, 375 constraint pairs, 66 cg sites, n_basis=7, so
+   K_exp = 9,000; 20,000 frames; 6 sites per block, 11 blocks). The tiled
+   kernel against its plain version at sweep width and at edge shapes, and
+   against a float64 sum (the planted fault must fail); the fit must launch
+   the tiled kernel once per block and map to finite forces; its first
+   block must lie near a float64 witness solved on the card (the planted
+   fault must not); then the fit's times, profile and peak memory, and the
+   tiled kernel's times;
+7. one JSON line listing every kernel; the last line is the result.
 
-The fixture is the JAX bench's standalone geometry (bench.py:290-307) made
-from fixed seeds; nothing is read from outside the repository.
+The fixtures are the JAX bench's standalone geometry (bench.py:290-307)
+and its sweep geometry (bench.py:415-530), made from fixed seeds; nothing is
+read from outside the repository.
 """
 
 import json
@@ -51,13 +62,19 @@ GRAM_REL_LIMIT = 1e-5
 # solution sits that far from its witness), and a fit on a Gram without
 # the divergence term lands above 1e-2.
 J_GAP_LIMIT = 1e-4
+# the sweep path (bench.py:415-530): its own kbT, and sites fitted per block
+SWEEP_FRAMES = 20_000
+SWEEP_ATOMS = 1_500
+SWEEP_KBT = 0.7
+SWEEP_SITE_BLOCK = 6
 # published H100 SXM peaks (NVIDIA data sheet) used for the lower bounds
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line, prefixed with the process seconds so far."""
+    print(f"[{time.perf_counter() - _T_START:7.1f}s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -311,13 +328,15 @@ def objective_gap(np, gram, rows, coefs):
     return (objective(coefs) - objective(witness)) / objective(witness), witness
 
 
-def fit_checks(torch, np, coords, forces, cmap, groups, spec, kernel_map, plain_map):
+def fit_checks(
+    torch, np, coords, forces, cmap, groups, spec, kernel_map, plain_map, blocked_map
+):
     """Gate the config-#3 fit against a float64 witness, and measure where
     the kernel fit and the plain fit part.
 
-    Gates: the kernel fit and the plain fit each lie within J_GAP_LIMIT of
-    the float64 optimum for the constraint values they meet, and a fit on a
-    Gram without the divergence term does not. The mapped forces are only
+    Gates: the kernel fit, the plain fit and the site-blocked fit each lie
+    within J_GAP_LIMIT of the float64 optimum for the constraint values they
+    meet, and a fit on a Gram without the divergence term does not. The mapped forces are only
     printed: the 200 sampled constraint rows of a site are near-dependent
     (the rank printed below), so fits that meet them to well inside the
     solver tolerance part by percents of mean|f| at the worst frame, even
@@ -347,6 +366,9 @@ def fit_checks(torch, np, coords, forces, cmap, groups, spec, kernel_map, plain_
     coefs = {
         "kernel fit (main path)": np.stack(kernel_map.force_map.tags["coef_list"]),
         "plain fit": np.stack(plain_map.force_map.tags["coef_list"]),
+        "blocked fit (site_block=3, tiled kernel)": np.stack(
+            blocked_map.force_map.tags["coef_list"]
+        ),
         # solved in float64 so that the fault, not a failed solve, is seen
         "planted fault: no divergence term": device_solve(
             problem(torch.float32, without_divergence)[0].double(), rows64, b64
@@ -385,6 +407,7 @@ def fit_checks(torch, np, coords, forces, cmap, groups, spec, kernel_map, plain_
         ("kernel fit (main path)", "plain fit"),
         ("kernel Gram, float64 solve", "plain Gram, float64 solve"),
         ("kernel Gram, float64 solve", "kernel fit (main path)"),
+        ("blocked fit (site_block=3, tiled kernel)", "kernel fit (main path)"),
         ("float64 host oracle, A c = b", "kernel Gram, float64 solve"),
     ]
     for x, y in pairs:
@@ -392,7 +415,10 @@ def fit_checks(torch, np, coords, forces, cmap, groups, spec, kernel_map, plain_
             f"{'%.3e / %.3e' % dev(f[x], f[y])} mean|f|")
     failed = [
         f"{name} objective gap {gaps[name]:.3e} above {J_GAP_LIMIT:.0e}"
-        for name in ("kernel fit (main path)", "plain fit")
+        for name in (
+            "kernel fit (main path)", "plain fit",
+            "blocked fit (site_block=3, tiled kernel)",
+        )
         if not gaps[name] <= J_GAP_LIMIT
     ]
     if not gaps["planted fault: no divergence term"] > J_GAP_LIMIT:
@@ -402,11 +428,14 @@ def fit_checks(torch, np, coords, forces, cmap, groups, spec, kernel_map, plain_
 
 
 def small_input_parity(np):
-    """Kernel fit vs plain fit on the card on a small, well-conditioned input:
-    mapped forces within 2e-3 * mean|f| (tests/test_pallas_gram.py:111-112)."""
+    """Kernel fit vs plain fit, and blocked fit (site_block=2, the tiled
+    kernel, a ragged last block) vs the unblocked kernel fit, on the card on
+    a small, well-conditioned input: mapped forces within 2e-3 * mean|f|
+    (tests/test_pallas_gram.py:111-112)."""
     import aggforce_torch
-    from aggforce_torch import Curry, LinearMap, Multifeaturize, gb_feat, id_feat
-    from aggforce_torch.qp import qp_feat_linear_map
+    from aggforce_torch import Curry, LinearMap, Multifeaturize, Trajectory, gb_feat, id_feat
+    from aggforce_torch.qp import fused_gb_linear_map_blocked, qp_feat_linear_map
+    from aggforce_torch.qp.fusedfeat import recognize_canonical_featurizer
     from aggforce_torch.utils.synth import synthesize_trajectory
 
     n = 24
@@ -424,26 +453,40 @@ def small_input_parity(np):
     _, plain = plain_fit(
         np, coords, forces, cmap, groups, featurizer, n_constraint_frames=10
     )
+    blocked = fused_gb_linear_map_blocked(
+        Trajectory(coords=coords, forces=forces), cmap, kbt=KBT,
+        spec=recognize_canonical_featurizer(featurizer), constraints=set(groups),
+        l2_regularization=L2, n_constraint_frames=10,
+        constraint_rng=np.random.default_rng(7), site_block=2,
+    ).map_arrays(coords, forces)[1]
     bound = 2e-3 * float(np.abs(plain).mean())
-    diff = float(np.abs(mapped - plain).max())
-    log(f"small input (24 atoms, 3 sites, T=256): kernel fit vs plain fit "
-        f"max |df| = {diff:.6g}, bound 2e-3*mean|f| = {bound:.6g}")
-    if not diff <= bound:
-        fail("the kernel fit disagrees with the plain fit on the small input")
+    failed = []
+    for name, x, y in (
+        ("kernel fit vs plain fit", mapped, plain),
+        ("blocked fit (site_block=2) vs kernel fit", blocked, mapped),
+    ):
+        diff = float(np.abs(x - y).max())
+        log(f"small input (24 atoms, 3 sites, T=256): {name} max |df| = "
+            f"{diff:.6g}, bound 2e-3*mean|f| = {bound:.6g}")
+        if not diff <= bound:
+            failed.append(f"{name} disagree on the small input")
+    if failed:
+        fail("; ".join(failed))
 
 
 def phase_main_path(torch, np, coords, forces, cmap, groups):
     import aggforce_torch
     from aggforce_torch import Curry, Multifeaturize, gb_feat, id_feat
-    from aggforce_torch.ops.gram import site_grams
-    from aggforce_torch.qp import qp_feat_linear_map
+    from aggforce_torch import Trajectory
+    from aggforce_torch.ops.gram import site_grams, site_grams_tiled
+    from aggforce_torch.qp import fused_gb_linear_map_blocked, qp_feat_linear_map
     from aggforce_torch.qp.fusedfeat import recognize_canonical_featurizer
 
     featurizer = Multifeaturize(
         [id_feat, Curry(gb_feat, outer=OUTER, n_basis=N_BASIS, width=WIDTH)]
     )
     torch.cuda.reset_peak_memory_stats()
-    site_grams.launches = 0
+    site_grams.launches = site_grams_tiled.launches = 0
     t0 = time.perf_counter()
     result = aggforce_torch.project_forces(
         coords, forces, cmap,
@@ -457,9 +500,11 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
     torch.cuda.synchronize()
     first_fit_s = time.perf_counter() - t0
     launches = site_grams.launches
+    tiled_launches = site_grams_tiled.launches
     peak_bytes = torch.cuda.max_memory_allocated()
     log(f"main path: project_forces {first_fit_s:.3f} s, site_grams launches "
-        f"{launches}, process seconds to first fitted map "
+        f"{launches}, site_grams_tiled launches {tiled_launches}, process "
+        f"seconds to first fitted map "
         f"{time.perf_counter() - _T_START:.3f}")
     if launches < 1:
         fail("the main path did not launch site_grams")
@@ -479,30 +524,64 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
 
     spec = recognize_canonical_featurizer(featurizer)
     plain_map, _ = plain_fit(np, coords, forces, cmap, groups, featurizer)
+    blocked_map = fused_gb_linear_map_blocked(
+        Trajectory(coords=coords, forces=forces), cmap, kbt=KBT, spec=spec,
+        constraints=set(groups), l2_regularization=L2,
+        constraint_rng=np.random.default_rng(7), site_block=3,
+    )
+    tags = blocked_map.force_map.tags
+    log(f"blocked fit at config #3 (site_block=3): solver_resid "
+        f"{tags['solver_resid']:.3e}, escalated sites {tags['escalated']}")
     log("config #3 fit against float64 witnesses:")
-    fit_checks(torch, np, coords, forces, cmap, groups, spec, tmap, plain_map)
+    fit_checks(
+        torch, np, coords, forces, cmap, groups, spec, tmap, plain_map, blocked_map
+    )
     small_input_parity(np)
     return spec, launches, first_fit_s, peak_bytes
 
 
-def fit_breakdown(torch, fit, fit_s):
-    """One steady-state fit under torch.profiler: device time by kernel, and
-    the kernels' total against the unprofiled fit time ``fit_s``."""
+def fit_breakdown(torch, fit, fit_s, top=12):
+    """One steady-state fit under torch.profiler: device time by kernel, the
+    kernels' total against the profiled fit's own wall clock (the device's
+    idle share) and against the unprofiled fit time ``fit_s``, and the
+    device time by kind of kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: with CPU ops recorded too, key_averages() spent
+    # minutes on the sweep fit's trace
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fit()
         torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
     kernels = [
         (e.key, e.self_device_time_total, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
+    log(f"profile aggregated in {time.perf_counter() - t0 - wall_s:.1f} s")
     busy_s = sum(k[1] for k in kernels) / 1e6
-    log(f"profiled fit: kernels {busy_s * 1e3:.2f} ms on the device = "
-        f"{busy_s / fit_s:.1%} of the median unprofiled fit ({fit_s * 1e3:.2f} ms)")
-    for key, us, count in sorted(kernels, key=lambda k: -k[1])[:12]:
-        log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    log(f"profiled fit: wall {wall_s * 1e3:.2f} ms, kernels {busy_s * 1e3:.2f} ms "
+        f"on the device = {busy_s / wall_s:.1%} busy, {1 - busy_s / wall_s:.1%} "
+        f"idle; {busy_s / fit_s:.1%} of the median unprofiled fit "
+        f"({fit_s * 1e3:.2f} ms)")
+    kinds = {}
+    for key, us, _ in kernels:
+        name = key.lower()
+        if "site_grams" in name:
+            kind = "Gram kernel"
+        elif any(w in name for w in ("potrf", "trsm", "syrk", "herk", "chol", "magma", "getrs", "trsv")):
+            kind = "solver factor/triangular kernels"
+        elif "gemm" in name or "sm90_xmma" in name or "cutlass" in name:
+            kind = "matrix products (packing einsums, solver products)"
+        else:
+            kind = "elementwise, copies, reductions (mirror, unpack, l2, equilibrate)"
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    for kind, us in sorted(kinds.items(), key=lambda k: -k[1]):
+        log(f"  {us / 1e3:11.3f} ms  {us / 1e6 / max(busy_s, 1e-12):6.1%}  {kind}")
+    for key, us, count in sorted(kernels, key=lambda k: -k[1])[:top]:
+        log(f"  {us / 1e3:11.3f} ms  x{count:<5d} {key[:90]}")
+    return wall_s, busy_s
 
 
 def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
@@ -567,6 +646,347 @@ def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
     )
 
 
+def sweep_fixture():
+    """The JAX bench's sweep geometry (bench.py:415-530) from fixed seeds:
+    1,500 atoms, 375 constraint pairs (G = 1,125 groups, G_pad = 1,136), a
+    cg site on every 23rd atom (S = 66), 20,000 frames."""
+    import numpy as np
+
+    from aggforce_torch import LinearMap
+    from aggforce_torch.utils.synth import synthesize_trajectory
+
+    base = np.random.default_rng(0).normal(scale=1.5, size=(SWEEP_ATOMS, 3))
+    groups = [frozenset((i, i + 1)) for i in range(0, SWEEP_ATOMS // 2, 2)]
+    cmap = LinearMap(
+        [[i] for i in range(0, SWEEP_ATOMS, SWEEP_ATOMS // 64)], n_fg_sites=SWEEP_ATOMS
+    )
+    coords, forces = synthesize_trajectory(
+        base, groups, SWEEP_FRAMES, seed=1, motion_scale=0.02
+    )
+    return coords, forces, cmap, groups
+
+
+def raw_params(ops):
+    """Flat-parameter Gram operands in the tiled kernel's form: the raw
+    (n_basis,) centers and the (G_pad,) per-group weights."""
+    gpos, cg, fg, mask, centers_flat, kcounts_flat = ops
+    g_pad = gpos.shape[2]
+    return (
+        gpos, cg, fg, mask, centers_flat[::g_pad].contiguous(),
+        kcounts_flat[:g_pad].contiguous(),
+    )
+
+
+def compare_tiled(torch, args, n_basis, label):
+    """The tiled kernel's raw (S, n_pairs, G_pad, G_pad) tiles against its
+    plain version: atol 3e-4 * (max|plain| + 1), the bound of
+    tests/test_pallas_gram.py:144-168."""
+    from aggforce_torch.ops.gram import site_grams_tiled_blocks, site_grams_tiled_plain
+
+    got = site_grams_tiled_blocks(*args, n_basis, WIDTH, 1e-3)
+    torch.cuda.synchronize()
+    ref = site_grams_tiled_plain(*args, n_basis, WIDTH, 1e-3)
+    err = float((got - ref).abs().max())
+    atol = 3e-4 * (float(ref.abs().max()) + 1.0)
+    finite = bool(torch.isfinite(got).all())
+    log(f"site_grams_tiled vs plain [{label}] tiles={tuple(got.shape)} "
+        f"max_abs_err={err:.6g} atol={atol:.6g} finite={finite}")
+    del got, ref
+    if not finite or not err <= atol:
+        fail(f"site_grams_tiled disagrees with its plain version at {label}")
+    return err
+
+
+def tiled_error_vs_float64(torch, args, n_basis):
+    """Gate the tiled kernel's tiles of one site against the same arithmetic
+    summed in float64, as ``gram_error_vs_float64`` does for the first
+    kernel; a Gram without the divergence term must fail it."""
+    from aggforce_torch.ops.gram import site_grams_tiled_blocks, site_grams_tiled_plain
+
+    def no_divergence(gpos, cg, fg, mask, centers, kbt_counts, *rest):
+        return site_grams_tiled_plain(
+            gpos, cg, fg, mask, centers, torch.zeros_like(kbt_counts), *rest
+        )
+
+    exact = site_grams_tiled_plain(*(x.double() for x in args), n_basis, WIDTH, 1e-3)
+    peak = float(exact.abs().max())
+    rel = {}
+    for name, fn in (
+        ("kernel", site_grams_tiled_blocks),
+        ("plain", site_grams_tiled_plain),
+        ("planted fault: no divergence term", no_divergence),
+    ):
+        err = float((fn(*args, n_basis, WIDTH, 1e-3).double() - exact).abs().max())
+        rel[name] = err / peak
+        log(f"{name} tiled Gram of one site at sweep width vs float64 sum: max "
+            f"abs err / max entry = {err / peak:.3e} (limit {GRAM_REL_LIMIT:.0e})")
+    del exact
+    if not rel["kernel"] <= GRAM_REL_LIMIT:
+        fail("the tiled kernel's Gram is further than the limit from a float64 sum")
+    if not rel["planted fault: no divergence term"] > GRAM_REL_LIMIT:
+        fail("the tiled Gram check does not reject a Gram without the divergence term")
+
+
+def sweep_operands(torch, np, coords, forces, cmap, groups, spec, sites):
+    """The tiled kernel's operands for ``sites`` exactly as the sweep path
+    packs them (coords/forces already on the card)."""
+    from aggforce_torch.ops.gram import pack_operands
+    from aggforce_torch.qp.fusedfeat import group_factorization
+
+    geom = group_factorization(cmap, spec, set(groups))
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device="cuda")
+
+    mask = torch.ones(coords.shape[0], dtype=torch.float32, device="cuda")
+    ops = pack_operands(
+        coords, forces, mask, dev(cmap.standard_matrix[sites]),
+        dev(geom["group_mean"]), dev(geom["onehot"]), dev(geom["counts"]),
+        SWEEP_KBT, spec.n_basis, dev(geom["centers"]),
+    )
+    gpos, cg, fg, centers_flat, kcounts = ops
+    return raw_params((gpos, cg, fg, mask, centers_flat, kcounts))
+
+
+def phase_sweep_kernels(torch, block_args, n_basis):
+    errs = [compare_tiled(
+        torch, block_args, n_basis,
+        f"sweep width, one block of {block_args[1].shape[0]} sites, T={SWEEP_FRAMES}",
+    )]
+    gpos, cg, *rest = block_args
+    tiled_error_vs_float64(torch, (gpos, cg[:1].contiguous(), *rest), n_basis)
+    for i, (g, t, s, nb) in enumerate(
+        [(5, 37, 1, 4), (1125, 83, 2, 2), (17, 1007, 3, 7), (16, 16, 1, 1), (145, 333, 2, 7)]
+    ):
+        edge = raw_params(random_operands(torch, g, t, s, nb, seed=200 + i))
+        label = f"G_pad={edge[0].shape[2]} T={t} S={s} n_basis={nb} masked"
+        errs.append(compare_tiled(torch, edge, nb, label))
+    return max(errs)
+
+
+def sweep_block_gate(torch, np, coords, forces, cmap, groups, spec, coefs):
+    """The sweep fit's first site block against a float64 witness solved on
+    the card, as ``fit_checks`` does at config #3: the fit's objective gap
+    must be <= J_GAP_LIMIT, and a fit on a Gram without the divergence term
+    (solved in float64, so that the fault and not a failed solve is seen)
+    must not pass. The Gram, the constraint rows and the witness are all
+    float64, through the fit's own assembly with the plain tiled Gram."""
+    from aggforce_torch.ops.eqp import batched_eqp_solve_shared
+    from aggforce_torch.qp.fusedfeat import _fit_parts, _gram_function, group_factorization
+
+    block = np.arange(SWEEP_SITE_BLOCK)
+    geom = group_factorization(cmap, spec, set(groups))
+    frame_idx = np.random.default_rng(3).choice(SWEEP_FRAMES, size=20, replace=False)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64, device="cuda")
+
+    xyz, frc = coords.double(), forces.double()
+    cmap64 = dev(cmap.standard_matrix)
+    plain = _gram_function(False, torch.device("cuda"), 1024, tiled=True)
+
+    def no_divergence(gpos, cg, fg, mask, centers, kbt_counts, *rest):
+        return plain(gpos, cg, fg, mask, centers, torch.zeros_like(kbt_counts), *rest)
+
+    def problem(gram_fn):
+        return _fit_parts(
+            xyz, frc, torch.ones(SWEEP_FRAMES, dtype=torch.float64, device="cuda"),
+            xyz[torch.as_tensor(frame_idx, device="cuda")], cmap64,
+            dev(geom["group_mean"]), dev(geom["onehot"]), dev(geom["counts"]),
+            dev(geom["centers"]), SWEEP_KBT, L2, spec, gram_fn, tiled=True,
+            cmap_rows=cmap64[block], site_sel=dev(np.eye(cmap.n_cg_sites)[block]),
+        )
+
+    def solve(gram, target):
+        return batched_eqp_solve_shared(
+            gram, rows[None], target[None, ..., None], delta=1e-12, iters=40
+        )[0, ..., 0]
+
+    gram_fault = problem(no_divergence)[0]
+    gram, rows, b = problem(plain)
+    log("  float64 Grams and constraint rows assembled")
+    c_fault = solve(gram_fault, b)
+    del gram_fault
+    log("  planted fault solved in float64")
+    norm = torch.linalg.norm(rows, dim=2)
+
+    def objective(c):
+        return float(torch.einsum("si,sij,sj->", c, gram, c))
+
+    coefs = {
+        "sweep fit, block 0 (main path)": dev(coefs[block]),
+        "planted fault: no divergence term, float64 solve": c_fault,
+    }
+    gaps = {}
+    for name, c in coefs.items():
+        target = torch.einsum("smn,sn->sm", rows, c)
+        witness = solve(gram, target)
+        gaps[name] = (objective(c) - objective(witness)) / objective(witness)
+        viol = float(((target - b) / norm).abs().max())
+        wviol = float(((torch.einsum("smn,sn->sm", rows, witness) - target) / norm).abs().max())
+        log(f"  {name}: objective gap to its float64 witness {gaps[name]:+.3e} "
+            f"(limit {J_GAP_LIMIT:.0e}); constraint violation {viol:.2e}; "
+            f"witness meets the fit's constraint values to {wviol:.2e}")
+    del gram, rows, b
+    failed = []
+    if not gaps["sweep fit, block 0 (main path)"] <= J_GAP_LIMIT:
+        failed.append("the sweep fit's first block misses its float64 witness")
+    if not gaps["planted fault: no divergence term, float64 solve"] > J_GAP_LIMIT:
+        failed.append("the sweep objective gate does not reject the planted fault")
+    if failed:
+        fail("; ".join(failed))
+
+
+def phase_sweep_fit(torch, np, traj, cmap, groups, spec):
+    """The sweep path end to end: the first fit gates the launch count and
+    finite forces, a second fit gives the steady-state time, a third runs
+    under the profiler."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_tiled
+    from aggforce_torch.qp import fused_gb_linear_map_blocked
+
+    def fit():
+        return fused_gb_linear_map_blocked(
+            traj, cmap, kbt=SWEEP_KBT, spec=spec, constraints=set(groups),
+            l2_regularization=L2, n_constraint_frames=20,
+            constraint_rng=np.random.default_rng(3), chunk_size=256,
+            site_block=SWEEP_SITE_BLOCK,
+        )
+
+    n_blocks = -(-cmap.n_cg_sites // SWEEP_SITE_BLOCK)
+    torch.cuda.reset_peak_memory_stats()
+    site_grams.launches = site_grams_tiled.launches = 0
+    t0 = time.perf_counter()
+    tmap = fit()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = site_grams_tiled.launches
+    peak_bytes = torch.cuda.max_memory_allocated()
+    tags = tmap.force_map.tags
+    log(f"sweep fit ({cmap.n_cg_sites} sites, K_exp={tags['coef_list'][0].size}, "
+        f"T={SWEEP_FRAMES}, site_block={SWEEP_SITE_BLOCK}): first fit "
+        f"{first_s:.3f} s; site_grams_tiled "
+        f"launches {launches} (blocks {n_blocks}), site_grams launches "
+        f"{site_grams.launches}; solver_resid {tags['solver_resid']:.3e}; "
+        f"escalated sites {tags['escalated']} in "
+        f"{tags['escalation_seconds']:.3f} s; peak device memory "
+        f"{peak_bytes / 2**30:.2f} GiB")
+    if launches != n_blocks:
+        fail(f"the sweep fit launched site_grams_tiled {launches} times, not {n_blocks}")
+    coords8 = traj.coords[:8].cpu().numpy()
+    forces8 = traj.forces[:8].cpu().numpy()
+    mapped = np.asarray(tmap.map_arrays(coords8, forces8)[1])
+    log(f"sweep mapped forces of 8 frames: shape {mapped.shape} finite="
+        f"{bool(np.isfinite(mapped).all())} mean|f| {np.abs(mapped).mean():.6g}")
+    if mapped.shape != (8, cmap.n_cg_sites, 3) or not np.isfinite(mapped).all():
+        fail("the sweep fit's mapped forces are not finite or have the wrong shape")
+    if not tags["solver_resid"] <= 1e-4:
+        fail(f"sweep solver residual {tags['solver_resid']} above 1e-4")
+    del tmap
+    t0 = time.perf_counter()
+    tmap = fit()
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    log(f"sweep fit, second: {second_s:.3f} s -> {SWEEP_FRAMES / second_s:.1f} "
+        f"frames/s; first {first_s:.3f} s -> {SWEEP_FRAMES / first_s:.1f} frames/s")
+    fit_breakdown(torch, fit, second_s, top=15)
+    return tmap, launches, first_s, second_s, peak_bytes
+
+
+def sweep_kernel_times(torch, args, n_basis):
+    """The tiled kernel per launch at the sweep block's shapes, its plain
+    version, and one torch.bmm of the block's materialized design rows (the
+    library yardstick: the full square, without the row build)."""
+    from aggforce_torch.ops.gram import (
+        block_pairs,
+        design_rows,
+        site_grams_tiled_blocks,
+        site_grams_tiled_plain,
+    )
+
+    kargs = (*args, n_basis, WIDTH, 1e-3)
+    kernel_ms = cuda_ms(torch, lambda: site_grams_tiled_blocks(*kargs), reps=2)
+    plain_ms = cuda_ms(torch, lambda: site_grams_tiled_plain(*kargs), reps=1)
+    gpos, cg, fg, mask, centers, kbt_counts = args
+    s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
+    k_pad = g_pad * (1 + n_basis)
+    rows = torch.empty((s_dim, 3 * t, k_pad), dtype=torch.float32, device="cuda")
+    for s in range(s_dim):
+        rows[s] = design_rows(
+            gpos, cg[s:s + 1], fg, mask, centers.repeat_interleave(g_pad),
+            kbt_counts.repeat(n_basis), n_basis, 1.0 / WIDTH, 1e-3,
+        )[0]
+    rows_t = rows.transpose(1, 2)
+    library_ms = cuda_ms(torch, lambda: torch.bmm(rows_t, rows), reps=1)
+    one_site_bmm_ms = cuda_ms(torch, lambda: torch.bmm(rows_t[:1], rows[:1]), reps=2)
+    del rows, rows_t
+
+    flops = 2.0 * 3 * t * s_dim * k_pad * (k_pad + 1) / 2
+    pairs = block_pairs(n_basis)
+    n_bytes = 4.0 * (
+        sum(x.numel() for x in args) + s_dim * len(pairs) * g_pad * g_pad
+    )
+    bound_ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bound_bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    # what the 64x64 tiling re-reads: every tile's one or two 64-group slices
+    # of gpos and fg (3 components each) over all frames
+    widths = [min(64, g_pad - lo) for lo in range(0, g_pad, 64)]
+    n_tiles, reread = 0, 0.0
+    for bi, bj in pairs:
+        for ti, wi in enumerate(widths):
+            for tj, wj in enumerate(widths):
+                if bi == bj and ti > tj:
+                    continue
+                n_tiles += 1
+                reread += (wi if bi == bj and ti == tj else wi + wj) * t * 6 * 4.0
+    log(f"site_grams_tiled: {kernel_ms:.3f} ms per launch ({s_dim} sites; "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s of unique entries), plain "
+        f"{plain_ms:.3f} ms, torch.bmm of the {s_dim} sites' materialized rows "
+        f"{library_ms:.3f} ms (one site's 2.2 GB rows: {one_site_bmm_ms:.3f} ms), "
+        f"bound {bound_ms:.3f} ms ({bound_by}; {flops:.4g} FLOP, {n_bytes:.4g} B "
+        f"read and written once)")
+    log(f"site_grams_tiled operand re-reads: {n_tiles * s_dim} tiles per launch, "
+        f"{reread * s_dim:.4g} B in all ({reread / n_tiles:.4g} B per tile; "
+        f"{reread * s_dim / (kernel_ms / 1e3) / 1e12:.2f} TB/s at the measured time)")
+    return dict(
+        ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
+def phase_sweep(torch, np, smi):
+    from aggforce_torch import Trajectory
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec
+
+    t0 = time.perf_counter()
+    coords_np, forces_np, cmap, groups = sweep_fixture()
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    del coords_np, forces_np
+    spec = GBFeatSpec(outer=8.0, inner=0.0, n_basis=7, width=1.0)
+    log(f"sweep fixture: {tuple(coords.shape)} frames x atoms x 3, "
+        f"{cmap.n_cg_sites} cg sites, {time.perf_counter() - t0:.3f} s")
+    block_args = sweep_operands(
+        torch, np, coords, forces, cmap, groups, spec, np.arange(SWEEP_SITE_BLOCK)
+    )
+    max_err = phase_sweep_kernels(torch, block_args, spec.n_basis)
+    traj = Trajectory(coords=coords, forces=forces)
+    tmap, launches, first_s, second_s, peak_bytes = phase_sweep_fit(
+        torch, np, traj, cmap, groups, spec
+    )
+    log("sweep fit, first site block against a float64 witness on the card:")
+    sweep_block_gate(
+        torch, np, coords, forces, cmap, groups, spec,
+        np.stack(tmap.force_map.tags["coef_list"]),
+    )
+    times = sweep_kernel_times(torch, block_args, spec.n_basis)
+    log(f"sweep phase {time.perf_counter() - t0:.3f} s; sweep fit peak device "
+        f"memory {peak_bytes / 2**30:.2f} GiB; {SWEEP_FRAMES / second_s:.1f} "
+        f"frames/s ({smi})")
+    return launches, max_err, times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -584,6 +1004,8 @@ def main() -> int:
     log(f"first fit {first_fit_s:.3f} s; peak device memory of the main path "
         f"{peak_bytes / 2**20:.1f} MiB ({smi})")
     times = phase_times(torch, np, coords, forces, cmap, groups, spec, ops)
+    del ops
+    tiled_launches, tiled_err, tiled_times = phase_sweep(torch, np, smi)
     kernels = [
         {
             "name": "site_grams",
@@ -593,8 +1015,18 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": max_err,
             **times,
-        }
+        },
+        {
+            "name": "site_grams_tiled",
+            "route": "cuda",
+            "source": "aggforce_torch/csrc/site_grams_tiled.cu",
+            "replaces": "aggforce_tpu/ops/pallas_gram.py:313",
+            "launches": tiled_launches,
+            "max_abs_err": tiled_err,
+            **tiled_times,
+        },
     ]
+    log(f"process seconds {time.perf_counter() - _T_START:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

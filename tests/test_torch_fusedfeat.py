@@ -214,3 +214,70 @@ def test_plain_gram_fit_equals_auto_fit_on_cpu(system):
     np.testing.assert_allclose(
         plain.map_arrays(coords, forces)[1], auto, atol=2e-3 * np.abs(auto).mean()
     )
+
+
+def test_config3_objective_matches_jax():
+    """At config-#3 width (175 atoms, 30 pairs, S = 10, n_basis = 7,
+    l2 = 1e3; T = 512) the port's fit and the JAX fit are both optimal for
+    the constraint values they meet, and reach the same objective.
+
+    J(c) = sum_s c_s^T P_s c_s with P the float64 Gram + l2. Each fit's
+    witness minimizes J in float64 on the host for the fit's own A c; its
+    gap (J(c) - J(witness)) / J(witness) must be <= 1e-4, and the port's J
+    must lie within 1e-4 relative of JAX's. The mapped forces are not
+    compared: the 200 sampled constraint rows of a site are near-dependent,
+    so two optimal fits part by ~1e-2 * mean|f| at the worst frame.
+    """
+    from aggforce_torch.ops.eqp import eqp_solve_host
+    from aggforce_torch.ops.gram import site_grams_plain
+
+    n, t, kbt = 175, 512, 0.6955215
+    base = np.random.default_rng(0).normal(scale=0.5, size=(n, 3))
+    groups = [frozenset((i, i + 1)) for i in range(0, 60, 2)]
+    sites = [[i] for i in range(0, n, 18)]
+    coords, forces = port_synth(base, groups, t, seed=2024)
+    kw = dict(kbt=kbt, constraints=set(groups), l2_regularization=L2)
+    jmap = jff.fused_gb_linear_map(
+        JTrajectory(coords=coords, forces=forces), jt.LinearMap(sites, n_fg_sites=n),
+        spec=jff.GBFeatSpec(outer=8.0, n_basis=7, width=1.0),
+        constraint_rng=np.random.default_rng(7), **kw,
+    )
+    cmap = pt.LinearMap(sites, n_fg_sites=n)
+    spec = pff.GBFeatSpec(outer=8.0, n_basis=7, width=1.0)
+    pmap = pff.fused_gb_linear_map(
+        pt.Trajectory(coords=coords, forces=forces), cmap, spec=spec,
+        constraint_rng=np.random.default_rng(7), device="cpu", **kw,
+    )
+
+    geom = pff.group_factorization(cmap, spec, set(groups))
+    frame_idx = np.random.default_rng(7).choice(t, size=20, replace=False)
+
+    def f64(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64)
+
+    xyz = f64(coords)
+    gram, rows, _ = pff._fit_parts(
+        xyz, f64(forces), torch.ones(t, dtype=torch.float64),
+        xyz[torch.as_tensor(frame_idx)], f64(cmap.standard_matrix),
+        f64(geom["group_mean"]), f64(geom["onehot"]), f64(geom["counts"]),
+        f64(geom["centers"]), kbt, L2, spec, site_grams_plain,
+    )
+    gram, rows = gram.numpy(), rows.numpy()
+
+    def objective(c):
+        return float(np.einsum("si,sij,sj->", c, gram, c))
+
+    def gap(c):
+        target = np.einsum("smn,sn->sm", rows, c)
+        witness = np.stack([
+            eqp_solve_host(gram[s], rows[s], target[s][:, None])[:, 0]
+            for s in range(gram.shape[0])
+        ])
+        return (objective(c) - objective(witness)) / objective(witness)
+
+    c_jax = np.stack([np.asarray(c) for c in jmap.force_map.tags["coef_list"]])
+    c_port = np.stack(pmap.force_map.tags["coef_list"])
+    c_jax, c_port = c_jax.astype(np.float64), c_port.astype(np.float64)
+    assert gap(c_jax) <= 1e-4
+    assert gap(c_port) <= 1e-4
+    assert objective(c_port) == pytest.approx(objective(c_jax), rel=1e-4)

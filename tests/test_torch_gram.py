@@ -162,3 +162,20 @@ def test_library_name_follows_source_and_flags(monkeypatch, tmp_path):
     third = _build.library_path("k.cu")
     assert len({first, second, third}) == 3
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
+
+
+def test_library_name_follows_headers(monkeypatch, tmp_path):
+    """An edit of a shared header never loads a library built before it."""
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k.cu")
+    header.write_text("// two\n")
+    assert _build.library_path("k.cu") != first
+
+
+def test_both_kernel_sources_are_built():
+    assert set(_build.SOURCES) == {"site_grams.cu", "site_grams_tiled.cu"}
+    for src in _build.SOURCES:
+        assert (_build.CSRC / src).is_file()

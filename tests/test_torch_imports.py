@@ -77,6 +77,17 @@ def _fused_fit():
     )
 
 
+def _blocked_fit():
+    from aggforce_torch import Trajectory
+    from aggforce_torch.qp import GBFeatSpec, fused_gb_linear_map_blocked
+
+    coords, forces, cmap = _fixture()
+    fused_gb_linear_map_blocked(
+        Trajectory(coords=coords, forces=forces), cmap, kbt=0.7,
+        spec=GBFeatSpec(outer=1.0, n_basis=3), site_block=1,
+    )
+
+
 def _tlinear_map():
     from aggforce_torch import TLinearMap
 
@@ -100,7 +111,8 @@ def _gb_feat():
 
 
 @pytest.mark.parametrize(
-    "entry", [_project_forces, _fused_fit, _tlinear_map, _map_carry, _gb_feat],
+    "entry",
+    [_project_forces, _fused_fit, _blocked_fit, _tlinear_map, _map_carry, _gb_feat],
     ids=lambda f: f.__name__.strip("_"),
 )
 def test_entry_points_need_cuda_unless_told(monkeypatch, entry):
