@@ -7,158 +7,64 @@
 //     P_s = sum_{t,a} row(t,a)^T row(t,a)
 //
 // of the design rows of frame t and Cartesian component a, built from the
-// raw group positions. Column c = b*G_pad + g is, for the id block b = 0,
-// fg_a[t,g]; for basis block b >= 1 (flat index j = c - G_pad),
+// raw group positions (the row formula is in gram_tc.cuh). Its per-column
+// parameters are flat: center and kbt*count of column G_pad + j are
+// centers[j] and kcounts[j], j = k*G_pad + g.
 //
-//     fg_a[t,g]*gz + dph*u_a,    disp = gpos[:,t,g] - cg[s,:,t],
-//     d = |disp|,  u = disp / max(d, 1e-30),  off = (d - center[j]) / w,
-//     raw = exp(-off^2),  gz = max(raw, clip) - clip,
-//     dph = kbt*count[j] * [raw > clip] * raw * (-2/w) * off * mask[t].
+// What bounds it on this card: tensor-core operations. At the main path's
+// size (T = 10,000 frames, S = 10 sites, K_pad = 1,280) the upper triangle
+// of the Grams is about 4.9e11 FLOP against about 0.1 GB of operands and
+// result. In 3xTF32 that is three TF32 products each, about 3.0 ms at the
+// published 495 TFLOP/s TF32 rate (7.3 ms at the 67 TFLOP/s fp32 rate of the
+// CUDA cores, the route of the kernel before it).
 //
-// fg carries the frame mask already, so the mask multiplies dph only.
-//
-// What bounds it on this card: operations. At the main path's size
-// (T = 10,000 frames, S = 10 sites, K_pad = 1,280) the upper triangle of the
-// Grams is about 5.2e11 FLOP against about 0.1 GB of operands and result, so
-// the floor is the fp32 rate of the CUDA cores (about 7.7 ms at the
-// published 67 TFLOP/s), not memory.
-//
-// What the design does about it:
-//  * The TPU kernel keeps a site's whole K_pad^2 accumulator in VMEM (6.5 MB
-//    at that size); an SM has 227 KB of shared memory, so the output is
-//    tiled: one block per (upper-triangle 64x64 output tile, site), 2,100
-//    blocks at that size, many times the 132 SMs. No frame split and no
-//    atomics are needed, and the result is the same from run to run.
-//  * CUDA blocks run in no order, so the TPU grid's sequential frame axis is
-//    a loop inside the block (gram_tile.cuh): for each chunk of 16 frames
-//    the block builds the tile's row slice and column slice of the design
-//    rows, for all three components, in shared memory straight from the raw
-//    operands (no design tensor reaches device memory), then accumulates
-//    outer products in registers, with the chunk sums taken in fp64.
-//    Diagonal tiles build one slice.
-//  * Off-diagonal tiles write themselves and their transpose. The ragged
-//    frame edge and the ragged column edge are masked here, so any T and
-//    any K_pad are taken.
+// What the design does about it (gram_tc.cuh): as the TPU kernel does, it
+// computes each (frame, group) distance once and expands it into basis
+// columns, then hands whole rows to the matrix units. A build stage writes
+// the rows of a chunk of frames once into a K-major scratch; a product stage
+// runs the upper-triangle 128x128 tiles of rows^T rows on the tensor cores
+// (TMA loads, wgmma TF32 with a hi/lo split, fp32 stage and chunk sums,
+// fp64 totals). This file's store writes each tile element i <= j and its
+// mirror into the flat square, so the output is exactly symmetric.
 
-#include "gram_tile.cuh"
+#include "gram_tc.cuh"
 
 namespace {
 
-using gram_tile::kFrames;
-using gram_tile::kThreads;
-using gram_tile::kTile;
-
-struct GramArgs {
-  const float* gpos;     // (3, T, G_pad) group positions
-  const float* cg;       // (S, 3, T) site positions
-  const float* fg;       // (3, T, G_pad) group force sums, mask folded in
-  const float* mask;     // (T,) frame validity
-  const float* centers;  // (G_pad * n_basis,) basis center of each column
-  const float* kcounts;  // (G_pad * n_basis,) kbt * group size per column
-  int n_frames;
-  int g_pad;
+// Element (i, j), i <= j, of site s into the row-major (S, K_pad, K_pad)
+// square, with its mirror.
+struct FlatStore {
+  float* out;
   int k_pad;
-  float inv_w;   // 1 / width
-  float dscale;  // -2 / width
-  float clip;
+  __device__ __forceinline__ void operator()(int s, int i, int j, float v) const {
+    if (i > j || j >= k_pad) return;
+    float* o = out + static_cast<size_t>(s) * k_pad * k_pad;
+    o[static_cast<size_t>(i) * k_pad + j] = v;
+    if (i != j) o[static_cast<size_t>(j) * k_pad + i] = v;
+  }
 };
-
-// Design rows of frames [t0, t0 + kFrames) and columns [c0, c0 + kTile) of
-// site `cg_s` into dst[a * kFrames + frame][column]; zero outside T and K_pad.
-__device__ __forceinline__ void build_slice(const GramArgs& p,
-                                            const float* __restrict__ cg_s,
-                                            int t0, int c0,
-                                            float (*dst)[kTile]) {
-  const size_t plane = static_cast<size_t>(p.n_frames) * p.g_pad;
-  for (int e = threadIdx.x; e < kFrames * kTile; e += kThreads) {
-    const int tt = e / kTile;
-    const int cc = e - tt * kTile;
-    const int t = t0 + tt;
-    const int c = c0 + cc;
-    float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
-    if (t < p.n_frames && c < p.k_pad) {
-      const int b = c / p.g_pad;
-      const size_t tg = static_cast<size_t>(t) * p.g_pad + (c - b * p.g_pad);
-      const float f0 = p.fg[tg];
-      const float f1 = p.fg[plane + tg];
-      const float f2 = p.fg[2 * plane + tg];
-      if (b == 0) {
-        r0 = f0;
-        r1 = f1;
-        r2 = f2;
-      } else {
-        const float x0 = p.gpos[tg] - cg_s[t];
-        const float x1 = p.gpos[plane + tg] - cg_s[p.n_frames + t];
-        const float x2 = p.gpos[2 * plane + tg] - cg_s[2 * p.n_frames + t];
-        const float d = sqrtf(x0 * x0 + x1 * x1 + x2 * x2);
-        const float inv_d = 1.0f / fmaxf(d, 1e-30f);
-        const int j = c - p.g_pad;
-        const float off = (d - p.centers[j]) * p.inv_w;
-        const float raw = expf(-(off * off));
-        const float gz = fmaxf(raw, p.clip) - p.clip;
-        const float live = raw > p.clip ? 1.0f : 0.0f;
-        const float dph =
-            p.kcounts[j] * live * raw * p.dscale * off * p.mask[t];
-        r0 = f0 * gz + dph * (x0 * inv_d);
-        r1 = f1 * gz + dph * (x1 * inv_d);
-        r2 = f2 * gz + dph * (x2 * inv_d);
-      }
-    }
-    dst[tt][cc] = r0;
-    dst[kFrames + tt][cc] = r1;
-    dst[2 * kFrames + tt][cc] = r2;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    site_grams_kernel(GramArgs p, float* __restrict__ out, int n_tiles) {
-  __shared__ __align__(16) float rows_i[gram_tile::kRows][kTile];
-  __shared__ __align__(16) float rows_j[gram_tile::kRows][kTile];
-
-  // blockIdx.x enumerates the upper-triangle tiles (ti <= tj) row by row
-  int ti = 0;
-  int rem = blockIdx.x;
-  while (rem >= n_tiles - ti) {
-    rem -= n_tiles - ti;
-    ++ti;
-  }
-  const int tj = ti + rem;
-  const bool diag = ti == tj;
-  const int i0 = ti * kTile;
-  const int j0 = tj * kTile;
-  const int s = blockIdx.y;
-  const float* cg_s = p.cg + static_cast<size_t>(s) * 3 * p.n_frames;
-
-  double total[gram_tile::kMicro][gram_tile::kMicro] = {};
-  gram_tile::frame_sum(
-      p.n_frames, diag,
-      [&](int t0, float (*dst)[kTile]) { build_slice(p, cg_s, t0, i0, dst); },
-      [&](int t0, float (*dst)[kTile]) { build_slice(p, cg_s, t0, j0, dst); },
-      rows_i, rows_j, total);
-  gram_tile::store_tile(total, out + static_cast<size_t>(s) * p.k_pad * p.k_pad,
-                        p.k_pad, i0, j0, !diag);
-}
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
-// launch was accepted). All pointers are device pointers to contiguous
-// float32 arrays of the shapes listed in GramArgs; out is (S, K_pad, K_pad)
-// with K_pad = G_pad * (1 + n_basis).
+// Launches the kernels on `stream` and returns the first cudaError_t (0 when
+// every launch was accepted). gpos, fg (3, T, G_pad), cg (S, 3, T), mask (T,),
+// centers and kcounts (G_pad * n_basis,) are device pointers to contiguous
+// float32 arrays; out is (S, K_pad, K_pad), K_pad = G_pad * (1 + n_basis).
+// scratch and running are the caller's workspace (see gram_tc::run_gram):
+// (S, k_alloc, 3*tc) float32 with zero columns past K_pad, and
+// (S, n_upper, 128*128) float64, k_alloc = K_pad rounded up to 128.
 extern "C" int aggforce_site_grams(const float* gpos, const float* cg,
                                    const float* fg, const float* mask,
                                    const float* centers, const float* kcounts,
-                                   float* out, int n_sites, int n_frames,
-                                   int g_pad, int n_basis, float inv_w,
+                                   float* out, float* scratch, double* running,
+                                   int n_sites, int n_frames, int g_pad,
+                                   int n_basis, int tc, float inv_w,
                                    float dscale, float clip, void* stream) {
   const int k_pad = g_pad * (1 + n_basis);
-  const int n_tiles = (k_pad + kTile - 1) / kTile;
-  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
-  if (n_sites <= 0 || n_pairs <= 0) return static_cast<int>(cudaSuccess);
-  GramArgs p{gpos,     cg,    fg,    mask,   centers, kcounts,
-             n_frames, g_pad, k_pad, inv_w,  dscale,  clip};
-  dim3 grid(n_pairs, n_sites);
-  site_grams_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, out, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+  const int k_alloc = (k_pad + gram_tc::kTile - 1) / gram_tc::kTile * gram_tc::kTile;
+  gram_tc::Operands p{gpos,    cg,      fg,     mask,     centers, kcounts,
+                      g_pad,   1,       g_pad,  1,        n_sites, n_frames,
+                      g_pad,   n_basis, inv_w,  dscale,   clip};
+  return gram_tc::run_gram(p, FlatStore{out, k_pad}, scratch, running, tc,
+                           k_alloc, static_cast<cudaStream_t>(stream));
 }

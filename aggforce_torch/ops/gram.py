@@ -10,8 +10,9 @@ with gz the Gaussian basis of the group<->site distance, dph its scaled
 radial derivative (the divergence factor), and u the unit displacement.
 :func:`site_grams` runs it as the hand-written CUDA kernel
 ``csrc/site_grams.cu``, which builds the rows from the raw group positions
-on chip; :func:`site_grams_plain` is the same arithmetic in plain torch, the
-CPU path and the kernel's oracle.
+on chip, a chunk of frames at a time, into a workspace, and takes their Gram
+on the tensor cores (``csrc/gram_tc.cuh``); :func:`site_grams_plain` is the
+same arithmetic in plain torch, the CPU path and the kernel's oracle.
 
 At sweep scale (K_pad ~ 9,000) :func:`site_grams_tiled` computes the same
 Grams one (G_pad, G_pad) basis-block pair at a time with the second
@@ -31,9 +32,18 @@ from typing import Tuple
 
 import torch
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [
     ctypes.c_void_p
 ]
+
+# the product stage's output tile edge (kTile of csrc/gram_tc.cuh) and the
+# build stage's frame block (kFrameBlock), the unit of a frame chunk
+PRODUCT_TILE = 128
+FRAME_BLOCK = 32
+# the longest frame chunk: 3 * 1,024 design rows summed in fp32 before the
+# fp64 total, and the bytes the K-major row scratch may take
+MAX_FRAME_CHUNK = 1024
+SCRATCH_BYTES = 1 << 30
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,15 +57,48 @@ def _kernel(source: str, symbol: str):
     return fn
 
 
+def frame_chunk(n_frames: int, n_sites: int, k_pad: int) -> int:
+    """Frames per chunk of the kernels' row build: a multiple of
+    ``FRAME_BLOCK``, at most ``MAX_FRAME_CHUNK``, no longer than T needs, and
+    small enough that the (S, k_alloc, 3 * chunk) float32 scratch stays
+    within ``SCRATCH_BYTES`` (one frame block at the least)."""
+    k_alloc = -(-k_pad // PRODUCT_TILE) * PRODUCT_TILE
+    fit = SCRATCH_BYTES // (4 * 3 * max(n_sites, 1) * max(k_alloc, 1))
+    chunk = min(MAX_FRAME_CHUNK, -(-max(n_frames, 1) // FRAME_BLOCK) * FRAME_BLOCK, fit)
+    return max(FRAME_BLOCK, chunk // FRAME_BLOCK * FRAME_BLOCK)
+
+
+def workspace_shapes(n_frames: int, n_sites: int, k_pad: int):
+    """(frame chunk, row scratch shape, fp64 running-tile shape) of one
+    kernel launch. The scratch is (S, k_alloc, 3 * chunk), k_alloc = K_pad
+    rounded up to the product tile; the running totals hold every
+    upper-triangle tile of every site, and are empty when one chunk covers T.
+    """
+    tc = frame_chunk(n_frames, n_sites, k_pad)
+    n_tiles = -(-k_pad // PRODUCT_TILE)
+    n_upper = n_tiles * (n_tiles + 1) // 2 if n_frames > tc else 0
+    return (
+        tc,
+        (n_sites, n_tiles * PRODUCT_TILE, 3 * tc),
+        (n_sites, n_upper, PRODUCT_TILE * PRODUCT_TILE),
+    )
+
+
 def _launch(source, symbol, out, gpos, cg, fg, mask, centers, kcounts, n_basis, width, clip):
-    """Launch a Gram kernel on the operands' current stream into ``out``."""
+    """Launch a Gram kernel on the operands' current stream into ``out``,
+    with its workspace allocated here (zeroed scratch: its columns past K_pad
+    are read as zeros and never written)."""
+    s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
+    tc, scratch_shape, running_shape = workspace_shapes(t, s_dim, g_pad * (1 + n_basis))
+    scratch = torch.zeros(scratch_shape, dtype=torch.float32, device=gpos.device)
+    running = torch.empty(running_shape, dtype=torch.float64, device=gpos.device)
     with torch.cuda.device(gpos.device):
         stream = torch.cuda.current_stream(gpos.device).cuda_stream
         err = _kernel(source, symbol)(
             gpos.data_ptr(), cg.data_ptr(), fg.data_ptr(), mask.data_ptr(),
             centers.data_ptr(), kcounts.data_ptr(), out.data_ptr(),
-            cg.shape[0], gpos.shape[1], gpos.shape[2], n_basis, 1.0 / width,
-            -2.0 / width, clip, stream,
+            scratch.data_ptr(), running.data_ptr(), s_dim, t, g_pad, n_basis,
+            tc, 1.0 / width, -2.0 / width, clip, stream,
         )
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed (cudaError {err})")
@@ -208,8 +251,9 @@ def site_grams_plain(
 def design_rows(gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, inv_w, clip):
     """Materialized design rows (S, 3*T, K_pad) of a frame range.
 
-    Row a*T + t holds component a of frame t. The kernel never builds this
-    tensor; the plain twin does, one frame chunk at a time.
+    Row a*T + t holds component a of frame t. The plain twin builds it one
+    frame chunk at a time; the kernels build the same rows, transposed
+    (K-major), into their workspace.
     """
     disp = gpos[None] - cg[..., None]  # (S, 3, t, G_pad)
     d = torch.sqrt(disp[:, 0] * disp[:, 0] + disp[:, 1] * disp[:, 1] + disp[:, 2] * disp[:, 2])

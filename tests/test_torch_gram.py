@@ -177,5 +177,209 @@ def test_library_name_follows_headers(monkeypatch, tmp_path):
 
 def test_both_kernel_sources_are_built():
     assert set(_build.SOURCES) == {"site_grams.cu", "site_grams_tiled.cu"}
-    for src in _build.SOURCES:
-        assert (_build.CSRC / src).is_file()
+    headers = {h.name for h in _build.CSRC.glob("*.cuh")}
+    assert headers == {"gram_tc.cuh"}
+    for src, symbol in (
+        ("site_grams.cu", "aggforce_site_grams("), ("site_grams_tiled.cu", "aggforce_site_grams_tiled(")
+    ):
+        text = (_build.CSRC / src).read_text()
+        assert '#include "gram_tc.cuh"' in text
+        assert f'extern "C" int {symbol}' in text
+    header = (_build.CSRC / "gram_tc.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in header
+    assert "cp.async.bulk.tensor.2d" in header  # operand panels arrive by TMA
+
+
+@pytest.mark.parametrize(
+    "name, value", [("kTile", pgram.PRODUCT_TILE), ("kFrameBlock", pgram.FRAME_BLOCK)]
+)
+def test_wrapper_constants_match_the_kernel_header(name, value):
+    """The wrapper sizes the workspace with the header's tile and frame block."""
+    text = (_build.CSRC / "gram_tc.cuh").read_text()
+    assert f"constexpr int {name} = {value};" in text
+
+
+# ---- the tensor-core kernels' host logic and numerics, modelled on the CPU --
+
+
+@pytest.mark.parametrize(
+    "t, s, k_pad, expect",
+    [
+        (10_000, 10, 1280, 1024),  # config #3: full chunks
+        (20_000, 6, 9088, 1024),  # sweep block: 670 MB of scratch
+        (16, 1, 32, 32),  # short T: one frame block
+        (333, 2, 1280, 352),  # ragged T rounds up to the frame block
+        (20_000, 66, 9088, 128),  # all 66 sweep sites: the byte budget binds
+        (5, 10_000, 100_000, 32),  # never below one frame block
+    ],
+)
+def test_frame_chunk_sizing(t, s, k_pad, expect):
+    tc = pgram.frame_chunk(t, s, k_pad)
+    assert tc == expect
+    assert tc % pgram.FRAME_BLOCK == 0
+    chunk, scratch, running = pgram.workspace_shapes(t, s, k_pad)
+    assert chunk == tc and scratch[2] == 3 * tc
+    assert scratch[1] % pgram.PRODUCT_TILE == 0 and scratch[1] - k_pad < pgram.PRODUCT_TILE
+    if tc >= pgram.MAX_FRAME_CHUNK or expect > pgram.FRAME_BLOCK:
+        assert 4 * scratch[0] * scratch[1] * scratch[2] <= pgram.SCRATCH_BYTES
+    n_tiles = scratch[1] // pgram.PRODUCT_TILE
+    assert running[1] == (n_tiles * (n_tiles + 1) // 2 if t > tc else 0)
+
+
+def _tf32(x):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to the nearest
+    10-bit mantissa, ties away from zero (bit masking)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz32(x):
+    """float64 to float32, rounded toward zero (as the tensor core sums)."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _tensor_core_gram(rows, chunk_rows, passes, fresh=True, stage_rows=32):
+    """The kernels' numerics. Operands are TF32 (``passes`` = 3: the split
+    lo*hi + hi*lo + hi*hi; 1: hi*hi only). Every tensor-core product of 8
+    rows sums into its fp32 input and truncates. With ``fresh`` (the
+    kernels) the products of each ``stage_rows``-row pipeline stage start
+    from zero and join the chunk's fp32 sum by a rounded add; without, the
+    truncating accumulator carries the whole chunk. Chunks of ``chunk_rows``
+    rows are summed in float64."""
+    k = rows.shape[2]
+    total = torch.zeros(rows.shape[0], k, k, dtype=torch.float64)
+    for chunk in rows.split(chunk_rows, dim=1):
+        hi = _tf32(chunk).double()
+        lo = _tf32(chunk - _tf32(chunk)).double()
+        acc = torch.zeros(rows.shape[0], k, k)
+        for s0 in range(0, chunk.shape[1], stage_rows):
+            part = torch.zeros_like(acc) if fresh else acc
+            for r0 in range(s0, min(s0 + stage_rows, chunk.shape[1]), 8):
+                h, lo8 = hi[:, r0:r0 + 8], lo[:, r0:r0 + 8]
+                steps = [h.transpose(1, 2) @ h]
+                if passes == 3:
+                    steps = [lo8.transpose(1, 2) @ h, h.transpose(1, 2) @ lo8] + steps
+                for step in steps:
+                    part = _rz32(part.double() + step)
+            acc = acc + part if fresh else part
+        total += acc.double()
+    return total
+
+
+def _config3_rows(n_frames):
+    """Design rows of two config-#3 sites (175 atoms, 30 pairs, n_basis 7,
+    K_pad 1,280) on a short synthetic trajectory, as the main path packs them."""
+    from aggforce_torch import LinearMap
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec as TSpec, group_factorization
+    from aggforce_torch.utils.synth import synthesize_trajectory
+
+    base = np.random.default_rng(0).normal(scale=0.5, size=(175, 3))
+    groups = [frozenset((i, i + 1)) for i in range(0, 60, 2)]
+    cmap = LinearMap([[i] for i in range(0, 175, 18)], n_fg_sites=175)
+    coords, forces = synthesize_trajectory(base, groups, n_frames, seed=2024)
+    spec = TSpec(outer=8.0, n_basis=7, width=1.0)
+    geom = {k: torch.as_tensor(v) for k, v in group_factorization(cmap, spec, set(groups)).items()}
+    mask = torch.ones(n_frames)
+    gpos, cg, fg, cf, kc = pgram.pack_operands(
+        torch.as_tensor(coords), torch.as_tensor(forces), mask,
+        torch.as_tensor(cmap.standard_matrix[:2], dtype=torch.float32),
+        geom["group_mean"], geom["onehot"], geom["counts"], 0.6955215, 7,
+        geom["centers"],
+    )
+    return pgram.design_rows(gpos, cg, fg, mask, cf, kc, 7, 1.0 / WIDTH, CLIP)
+
+
+@pytest.mark.parametrize(
+    "passes, fresh, within",
+    [(3, True, True), (1, True, False), (3, False, False)],
+    ids=["split, stage products (the kernels)", "one TF32 pass", "split, truncating chunk sums"],
+)
+def test_tensor_core_gram_numerics(passes, fresh, within):
+    """3xTF32 with each 32-row stage's products summed in the tensor core,
+    rounded fp32 sums of the stages over the kernels' chunk length, and fp64
+    totals lies within 1e-6 of the largest
+    entry of a float64 sum (chip_smoke.py's GRAM_REL_LIMIT). A single TF32
+    pass does not, and neither does the split when the tensor core's
+    truncating accumulator carries the chunk, so the bound discriminates."""
+    n_frames = 120
+    rows = _config3_rows(n_frames)[:1]
+    assert rows.shape == (1, 3 * n_frames, 1280)
+    exact = rows.double().transpose(1, 2) @ rows.double()
+    chunk_rows = 3 * pgram.frame_chunk(n_frames, 1, 1280)
+    assert chunk_rows == 3 * 128
+    # the model's 32-row stage is the product stage's kDepth
+    assert "constexpr int kDepth = 32;" in (_build.CSRC / "gram_tc.cuh").read_text()
+    err = float((_tensor_core_gram(rows, chunk_rows, passes, fresh) - exact).abs().max())
+    rel = err / float(exact.abs().max())
+    assert (rel <= 1e-6) is within, rel
+
+
+def test_tf32_rounding_model():
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-12, -(1.0 + 2**-11), 3.0e-3])
+    hi = _tf32(x)
+    # a tie rounds away from zero; 1 + 3*2^-12 rounds up to 1 + 2^-10
+    assert hi.tolist()[:4] == [1.0, 1.0 + 2**-10, 1.0 + 2**-10, -(1.0 + 2**-10)]
+    lo = _tf32(x - hi)
+    np.testing.assert_array_equal((hi.double() + lo.double()).numpy(), x.double().numpy())
+
+
+def _stored_by_kernel(square, g_pad, n_basis):
+    """What the kernels' two stores write from the product tiles of a flat
+    (S, K_pad, K_pad) square, element by element as csrc/site_grams.cu
+    (FlatStore) and csrc/site_grams_tiled.cu (PairStore) do: every element
+    i <= j of every upper-triangle 128x128 tile over k_alloc, clipped to
+    K_pad. Unwritten entries stay NaN."""
+    s, k_pad, _ = square.shape
+    n_tiles = -(-k_pad // pgram.PRODUCT_TILE)
+    b = 1 + n_basis
+    n_pairs = b * (b + 1) // 2
+    flat = np.full(square.shape, np.nan, np.float32)
+    pairs = np.full((s, n_pairs, g_pad, g_pad), np.nan, np.float32)
+    edge = np.arange(pgram.PRODUCT_TILE)
+    for ti in range(n_tiles):
+        for tj in range(ti, n_tiles):
+            i, j = np.meshgrid(ti * pgram.PRODUCT_TILE + edge, tj * pgram.PRODUCT_TILE + edge,
+                               indexing="ij")
+            keep = (i <= j) & (j < k_pad)
+            i, j = i[keep], j[keep]
+            v = square[:, i, j]
+            flat[:, i, j] = v
+            flat[:, j, i] = v
+            bi, bj = i // g_pad, j // g_pad
+            x, y = i - bi * g_pad, j - bj * g_pad
+            p = bi * b - bi * (bi - 1) // 2 + (bj - bi)
+            pairs[:, p, x, y] = v
+            d = bi == bj
+            pairs[:, p[d], y[d], x[d]] = v[:, d]
+    return flat, pairs
+
+
+@pytest.mark.parametrize("g, k, s", [(5, 4, 3), (17, 3, 1), (16, 1, 2), (145, 7, 1)])
+def test_kernel_stores_map_tiles_onto_both_contracts(g, k, s):
+    """The pair store's index map over 128-tiles that cross the ragged G_pad
+    block edges rebuilds site_grams_tiled_plain's tiles exactly and covers
+    every entry; the flat store gives the symmetric square, whose pairs
+    mirror_tiles reassembles."""
+    raw, _, k = _raw(3, t=16, s=s, g=g, k=k)
+    arrays, centers = raw, _
+    coords, forces, mask, cmap, group_mean, onehot, counts = map(torch.as_tensor, arrays)
+    gpos, cg, fg, cf, kc = pgram.pack_operands(
+        coords, forces, mask, cmap, group_mean, onehot, counts, 0.7, k,
+        torch.as_tensor(centers),
+    )
+    g_pad = gpos.shape[2]
+    args = (gpos, cg, fg, mask)
+    square = pgram.site_grams_plain(*args, cf, kc, k, WIDTH, CLIP)
+    tiles = pgram.site_grams_tiled_plain(
+        *args, cf[::g_pad].contiguous(), kc[:g_pad].contiguous(), k, WIDTH, CLIP
+    )
+    upper = torch.triu(square)
+    sym = (upper + torch.triu(square, 1).transpose(1, 2)).numpy()
+    flat, pairs = _stored_by_kernel(square.numpy(), g_pad, k)
+    assert not np.isnan(flat).any() and not np.isnan(pairs).any()
+    np.testing.assert_array_equal(flat, sym)
+    scale = float(tiles.abs().max()) + 1.0
+    np.testing.assert_allclose(pairs, tiles.numpy(), atol=3e-5 * scale)
+    np.testing.assert_array_equal(pgram.mirror_tiles(torch.as_tensor(pairs), k).numpy(), sym)
