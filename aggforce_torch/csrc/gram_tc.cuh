@@ -43,9 +43,12 @@
 // mirror its output contract wants.
 //
 // What bounds it: the tensor cores' TF32 rate, three products per fp32
-// product. On the card the split work of the producer and the products take
-// comparable times (PERF.md; experiments/gram_tc/variants.py times the
-// parts and the mma.sync stage this replaced).
+// product. On the card the producer's split and the products take
+// comparable times (PERF.md).
+//
+// The caller allocates the workspace and passes its layout (tc, k_alloc and
+// the running tiles per site); run_gram refuses a layout other than its own
+// with kBadWorkspace instead of writing past it.
 
 #pragma once
 
@@ -55,6 +58,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <vector>
 
 namespace gram_tc {
 
@@ -64,6 +68,7 @@ constexpr int kFrameBlock = 32;  // build stage: frames per block (and tc's unit
 constexpr int kGroupBlock = 32;  // build stage: groups per block
 constexpr int kAddRunning = 1;   // product mode: add the fp64 running tile
 constexpr int kFinal = 2;        // product mode: store the totals
+constexpr int kBadWorkspace = -1;  // run_gram's return for a foreign layout
 
 struct Operands {
   const float* gpos;     // (3, T, G_pad) group positions
@@ -422,12 +427,26 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Host side: the chunk loop on `stream`, build then product per chunk of tc
 // frames; the product reads the scratch through one TMA map, a 2-D view of
-// (S * k_alloc columns, 3*tc rows) with 32 x 128 boxes.
+// (S * k_alloc columns, 3*tc rows) with 32 x 128 boxes. The workspace is the
+// caller's: scratch (S, k_alloc, 3*tc) float32 with zero columns past K_pad,
+// running (S, n_running, 128*128) float64, n_running the upper-triangle tile
+// count when T takes more than one chunk, else 0. Returns kBadWorkspace if
+// tc, k_alloc or n_running is not that layout, else the first cudaError_t.
+// With `stage_ms` (host, two floats) it also records CUDA events between the
+// launches, waits for the last, and writes the device milliseconds of the
+// build and the product stages, each summed over the chunks.
 template <class Store>
 int run_gram(const Operands& p, Store store, float* scratch, double* running,
-             int tc, int k_alloc, cudaStream_t stream) {
-  const int n_tiles = k_alloc / kTile;
+             int tc, int k_alloc, int n_running, float* stage_ms,
+             cudaStream_t stream) {
+  const int k_pad = p.g_pad * (1 + p.n_basis);
+  const int n_tiles = (k_pad + kTile - 1) / kTile;
   const int n_upper = n_tiles * (n_tiles + 1) / 2;
+  if (tc <= 0 || tc % kFrameBlock != 0) return kBadWorkspace;
+  const int n_chunks = p.n_frames > tc ? (p.n_frames + tc - 1) / tc : 1;
+  if (k_alloc != n_tiles * kTile || n_running != (n_chunks > 1 ? n_upper : 0))
+    return kBadWorkspace;
+  if (stage_ms != nullptr) stage_ms[0] = stage_ms[1] = 0.0f;
   if (p.n_sites <= 0 || n_upper <= 0) return static_cast<int>(cudaSuccess);
   cudaError_t err = cudaFuncSetAttribute(
       site_grams_product<Store>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -455,20 +474,44 @@ int run_gram(const Operands& p, Store store, float* scratch, double* running,
                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (made != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = p.n_frames > tc ? (p.n_frames + tc - 1) / tc : 1;
+  // marks[2c] before chunk c's build, marks[2c + 1] between its build and
+  // its product, marks[2n] after the last product
+  std::vector<cudaEvent_t> marks(stage_ms != nullptr ? 2 * n_chunks + 1 : 0);
+  for (cudaEvent_t& e : marks) {
+    err = cudaEventCreate(&e);
+    if (err != cudaSuccess) {
+      e = nullptr;
+      break;
+    }
+  }
   const dim3 build_grid(tc / kFrameBlock, (p.g_pad + kGroupBlock - 1) / kGroupBlock);
   const dim3 build_block(kFrameBlock, 8);
   const dim3 grid(n_upper, p.n_sites);
-  for (int c = 0; c < n_chunks; ++c) {
+  for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
+    if (!marks.empty()) cudaEventRecord(marks[2 * c], stream);
     site_grams_build<<<build_grid, build_block, 0, stream>>>(p, scratch, c * tc,
                                                              tc, k_alloc);
+    if (!marks.empty()) cudaEventRecord(marks[2 * c + 1], stream);
     const int mode = (c > 0 ? kAddRunning : 0) | (c + 1 == n_chunks ? kFinal : 0);
     site_grams_product<Store><<<grid, kThreads, kSmemBytes, stream>>>(
         map, running, store, n_tiles, k_alloc, depth, mode);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return static_cast<int>(cudaSuccess);
+  if (!marks.empty() && err == cudaSuccess) {
+    cudaEventRecord(marks.back(), stream);
+    err = cudaEventSynchronize(marks.back());
+    for (int c = 0; c < n_chunks && err == cudaSuccess; ++c) {
+      float build = 0.0f, product = 0.0f;
+      err = cudaEventElapsedTime(&build, marks[2 * c], marks[2 * c + 1]);
+      if (err == cudaSuccess)
+        err = cudaEventElapsedTime(&product, marks[2 * c + 1], marks[2 * c + 2]);
+      stage_ms[0] += build;
+      stage_ms[1] += product;
+    }
+  }
+  for (cudaEvent_t e : marks)
+    if (e != nullptr) cudaEventDestroy(e);
+  return static_cast<int>(err);
 }
 
 }  // namespace gram_tc

@@ -47,24 +47,26 @@ struct FlatStore {
 }  // namespace
 
 // Launches the kernels on `stream` and returns the first cudaError_t (0 when
-// every launch was accepted). gpos, fg (3, T, G_pad), cg (S, 3, T), mask (T,),
-// centers and kcounts (G_pad * n_basis,) are device pointers to contiguous
-// float32 arrays; out is (S, K_pad, K_pad), K_pad = G_pad * (1 + n_basis).
-// scratch and running are the caller's workspace (see gram_tc::run_gram):
-// (S, k_alloc, 3*tc) float32 with zero columns past K_pad, and
-// (S, n_upper, 128*128) float64, k_alloc = K_pad rounded up to 128.
+// every launch was accepted), or gram_tc::kBadWorkspace. gpos, fg
+// (3, T, G_pad), cg (S, 3, T), mask (T,), centers and kcounts
+// (G_pad * n_basis,) are device pointers to contiguous float32 arrays; out is
+// (S, K_pad, K_pad), K_pad = G_pad * (1 + n_basis). scratch and running are
+// the caller's workspace, of the layout that tc, k_alloc and n_running state
+// (see gram_tc::run_gram); stage_ms is null or a host array of two floats
+// for the stage times.
 extern "C" int aggforce_site_grams(const float* gpos, const float* cg,
                                    const float* fg, const float* mask,
                                    const float* centers, const float* kcounts,
                                    float* out, float* scratch, double* running,
                                    int n_sites, int n_frames, int g_pad,
-                                   int n_basis, int tc, float inv_w,
-                                   float dscale, float clip, void* stream) {
+                                   int n_basis, int tc, int k_alloc,
+                                   int n_running, float inv_w, float dscale,
+                                   float clip, float* stage_ms, void* stream) {
   const int k_pad = g_pad * (1 + n_basis);
-  const int k_alloc = (k_pad + gram_tc::kTile - 1) / gram_tc::kTile * gram_tc::kTile;
   gram_tc::Operands p{gpos,    cg,      fg,     mask,     centers, kcounts,
                       g_pad,   1,       g_pad,  1,        n_sites, n_frames,
                       g_pad,   n_basis, inv_w,  dscale,   clip};
   return gram_tc::run_gram(p, FlatStore{out, k_pad}, scratch, running, tc,
-                           k_alloc, static_cast<cudaStream_t>(stream));
+                           k_alloc, n_running, stage_ms,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -56,26 +56,26 @@ struct PairStore {
 }  // namespace
 
 // Launches the kernels on `stream` and returns the first cudaError_t (0 when
-// every launch was accepted). gpos, fg (3, T, G_pad), cg (S, 3, T), mask (T,),
-// centers (n_basis,) and kcounts (G_pad,) are device pointers to contiguous
-// float32 arrays; out is (S, n_pairs, G_pad, G_pad) with n_pairs = B(B+1)/2,
-// B = 1 + n_basis. scratch and running are the caller's workspace, as for
-// aggforce_site_grams.
+// every launch was accepted), or gram_tc::kBadWorkspace. gpos, fg
+// (3, T, G_pad), cg (S, 3, T), mask (T,), centers (n_basis,) and kcounts
+// (G_pad,) are device pointers to contiguous float32 arrays; out is
+// (S, n_pairs, G_pad, G_pad) with n_pairs = B(B+1)/2, B = 1 + n_basis. The
+// workspace and stage_ms are as for aggforce_site_grams.
 extern "C" int aggforce_site_grams_tiled(const float* gpos, const float* cg,
                                          const float* fg, const float* mask,
                                          const float* centers,
                                          const float* kcounts, float* out,
                                          float* scratch, double* running,
                                          int n_sites, int n_frames, int g_pad,
-                                         int n_basis, int tc, float inv_w,
+                                         int n_basis, int tc, int k_alloc,
+                                         int n_running, float inv_w,
                                          float dscale, float clip,
-                                         void* stream) {
+                                         float* stage_ms, void* stream) {
   const int n_blocks = 1 + n_basis;
-  const int k_pad = g_pad * n_blocks;
-  const int k_alloc = (k_pad + gram_tc::kTile - 1) / gram_tc::kTile * gram_tc::kTile;
   gram_tc::Operands p{gpos,    cg,      fg,    mask,     centers, kcounts,
                       1,       0,       0,     1,        n_sites, n_frames,
                       g_pad,   n_basis, inv_w, dscale,   clip};
   return gram_tc::run_gram(p, PairStore{out, g_pad, n_blocks}, scratch, running,
-                           tc, k_alloc, static_cast<cudaStream_t>(stream));
+                           tc, k_alloc, n_running, stage_ms,
+                           static_cast<cudaStream_t>(stream));
 }

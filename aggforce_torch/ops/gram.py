@@ -32,9 +32,16 @@ from typing import Tuple
 
 import torch
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
     ctypes.c_void_p
-]
+] * 2
+# what the C entries return when the workspace they are given is not their
+# layout (gram_tc::kBadWorkspace)
+_BAD_WORKSPACE = -1
+_ENTRIES = {
+    False: ("site_grams.cu", "aggforce_site_grams"),
+    True: ("site_grams_tiled.cu", "aggforce_site_grams_tiled"),
+}
 
 # the product stage's output tile edge (kTile of csrc/gram_tc.cuh) and the
 # build stage's frame block (kFrameBlock), the unit of a frame chunk
@@ -84,24 +91,55 @@ def workspace_shapes(n_frames: int, n_sites: int, k_pad: int):
     )
 
 
-def _launch(source, symbol, out, gpos, cg, fg, mask, centers, kcounts, n_basis, width, clip):
-    """Launch a Gram kernel on the operands' current stream into ``out``,
-    with its workspace allocated here (zeroed scratch: its columns past K_pad
-    are read as zeros and never written)."""
+def _launch(tiled, gpos, cg, fg, mask, centers, kcounts, n_basis, width, clip, stage_ms=None):
+    """Launch a Gram kernel (the tiled one if ``tiled``) on the operands'
+    current stream and return its output, with its workspace allocated here
+    (zeroed scratch: its columns past K_pad are read as zeros and never
+    written) and its layout passed along for the C entry to check.
+    ``stage_ms``, a ctypes array of two floats, receives the stage times."""
     s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
-    tc, scratch_shape, running_shape = workspace_shapes(t, s_dim, g_pad * (1 + n_basis))
+    k_pad = g_pad * (1 + n_basis)
+    if tiled:
+        out_shape = (s_dim, len(block_pairs(n_basis)), g_pad, g_pad)
+    else:
+        out_shape = (s_dim, k_pad, k_pad)
+    out = torch.empty(out_shape, dtype=torch.float32, device=gpos.device)
+    tc, scratch_shape, running_shape = workspace_shapes(t, s_dim, k_pad)
     scratch = torch.zeros(scratch_shape, dtype=torch.float32, device=gpos.device)
     running = torch.empty(running_shape, dtype=torch.float64, device=gpos.device)
+    source, symbol = _ENTRIES[tiled]
     with torch.cuda.device(gpos.device):
         stream = torch.cuda.current_stream(gpos.device).cuda_stream
         err = _kernel(source, symbol)(
             gpos.data_ptr(), cg.data_ptr(), fg.data_ptr(), mask.data_ptr(),
             centers.data_ptr(), kcounts.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), running.data_ptr(), s_dim, t, g_pad, n_basis,
-            tc, 1.0 / width, -2.0 / width, clip, stream,
+            tc, scratch_shape[1], running_shape[1], 1.0 / width, -2.0 / width,
+            clip, stage_ms, stream,
+        )
+    if err == _BAD_WORKSPACE:
+        raise RuntimeError(
+            f"{symbol} refused the workspace: workspace_shapes and csrc/gram_tc.cuh "
+            f"disagree on its layout (chunk {tc}, scratch {scratch_shape}, "
+            f"running {running_shape})"
         )
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed (cudaError {err})")
+    return out
+
+
+def stage_times(tiled: bool, *args) -> Tuple[float, float]:
+    """Device milliseconds of one Gram kernel launch's (build, product)
+    stages, each summed over the launch's frame chunks, from CUDA events
+    that the C entry records between its launches; waits for the launch.
+    ``args`` are those of :func:`site_grams_tiled_blocks` (``tiled``) or
+    :func:`site_grams`, on the card. A timing probe, not a use of the
+    kernel: it adds nothing to the wrappers' ``launches``."""
+    if args[0].device.type != "cuda":
+        raise ValueError(f"stage_times needs CUDA tensors, not {args[0].device}")
+    ms = (ctypes.c_float * 2)()
+    _launch(tiled, *args, stage_ms=ms)
+    return ms[0], ms[1]
 
 
 def pack_operands(
@@ -203,11 +241,7 @@ def site_grams(
         return site_grams_plain(*args)
     if gpos.device.type != "cuda":
         raise ValueError(f"site_grams runs on CUDA or CPU, not {gpos.device}")
-    k_pad = gpos.shape[2] * (1 + n_basis)
-    out = torch.empty(
-        (cg.shape[0], k_pad, k_pad), dtype=torch.float32, device=gpos.device
-    )
-    _launch("site_grams.cu", "aggforce_site_grams", out, *args)
+    out = _launch(False, *args)
     site_grams.launches += 1
     return out
 
@@ -310,12 +344,7 @@ def site_grams_tiled_blocks(
         return site_grams_tiled_plain(*args)
     if gpos.device.type != "cuda":
         raise ValueError(f"site_grams_tiled runs on CUDA or CPU, not {gpos.device}")
-    g_pad = gpos.shape[2]
-    out = torch.empty(
-        (cg.shape[0], len(block_pairs(n_basis)), g_pad, g_pad),
-        dtype=torch.float32, device=gpos.device,
-    )
-    _launch("site_grams_tiled.cu", "aggforce_site_grams_tiled", out, *args)
+    out = _launch(True, *args)
     site_grams_tiled.launches += 1
     return out
 

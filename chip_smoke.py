@@ -264,33 +264,28 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def stage_ms(torch, fn, n_chunks):
-    """Device milliseconds of one call of a Gram wrapper, by stage: the row
+def stage_ms(torch, tiled, args, n_chunks):
+    """Device milliseconds of one launch of a Gram kernel by stage, the row
     build (``site_grams_build``) and the tensor-core product
-    (``site_grams_product``), each launched once per frame chunk, from
-    torch.profiler's device trace: the mean time of a launch times
-    ``n_chunks`` (the trace of a long call may drop some launches)."""
-    from torch.profiler import ProfilerActivity, profile
+    (``site_grams_product``), each launched once per frame chunk: every
+    launch timed by CUDA events that the C entry records between them
+    (``ops.gram.stage_times``); ``kernel_report`` holds their sum to the
+    launch's time."""
+    from aggforce_torch.ops.gram import stage_times
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    stages = {}
-    for e in prof.key_averages():
-        for kind in ("build", "product"):
-            if e.device_type == torch.autograd.DeviceType.CUDA and f"site_grams_{kind}" in e.key:
-                stages[kind] = e.self_device_time_total / 1e3 / e.count * n_chunks
-                stages[f"{kind}_traced"] = e.count
-    return stages
+    build, product = stage_times(tiled, *args)
+    log(f"stages of one launch ({n_chunks} chunks, CUDA events between the "
+        f"launches): build {build:.3f} ms, product {product:.3f} ms")
+    return {"build": build, "product": product}
 
 
 def kernel_report(name, ms, stages, flops, n_bytes, library_ms, plain_ms):
     """Log a Gram kernel's time against its bounds and yardstick; return the
     JSON fields. ``bound_ms`` is the route the kernel takes: TF32_PASSES
     tensor-core products per fp32 product at the TF32 peak, or the bytes if
-    they take longer; the fp32 CUDA-core bound is kept beside it."""
+    they take longer; ``fp32_bound_ms``, computed the same way from the same
+    inputs, is the fp32 CUDA-core route, kept beside it."""
     tc_ms = TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3
     fp32_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
@@ -300,8 +295,11 @@ def kernel_report(name, ms, stages, flops, n_bytes, library_ms, plain_ms):
         f"entries ({TF32_PASSES * flops / ms / 1e9:.2f} TFLOP/s of TF32 products); "
         f"build stage {stages['build']:.3f} ms, product stage "
         f"{stages['product']:.3f} ms ({TF32_PASSES * flops / stages['product'] / 1e9:.2f} "
-        f"TFLOP/s TF32; {stages['build_traced']} and {stages['product_traced']} "
-        f"launches traced)")
+        f"TFLOP/s TF32)")
+    staged = stages["build"] + stages["product"]
+    if not abs(staged - ms) <= 0.05 * ms:
+        fail(f"{name}: the stages add up to {staged:.3f} ms, not within 5% of the "
+             f"launch's {ms:.3f} ms")
     log(f"{name}: bound {bound_ms:.3f} ms ({bound_by}; {TF32_PASSES}x{flops:.4g} "
         f"TF32 FLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {n_bytes:.4g} B at "
         f"{PEAK_BYTES / 1e12:.2f} TB/s), fp32 CUDA-core bound {fp32_ms:.3f} ms; "
@@ -697,7 +695,7 @@ def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
     )
     n_chunks = -(-t // workspace_shapes(t, s_dim, k_pad)[0])
     report = kernel_report(
-        "site_grams", kernel_ms, stage_ms(torch, lambda: site_grams(*args), n_chunks),
+        "site_grams", kernel_ms, stage_ms(torch, False, args, n_chunks),
         flops, n_bytes, library_ms, plain_ms,
     )
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
@@ -994,7 +992,7 @@ def sweep_kernel_times(torch, args, n_basis):
     n_chunks = -(-t // tc)
     report = kernel_report(
         "site_grams_tiled", kernel_ms,
-        stage_ms(torch, lambda: site_grams_tiled_blocks(*kargs), n_chunks), flops,
+        stage_ms(torch, True, kargs, n_chunks), flops,
         n_bytes, library_ms, plain_ms,
     )
     # what the two stages move: the build writes each chunk's K-major rows

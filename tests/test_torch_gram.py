@@ -1,6 +1,8 @@
 """Port parity: the per-site Gram (pack, plain twin, unpack) against the JAX
 package's Pallas kernel, run in interpret mode on the CPU, and its oracle."""
 
+import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -191,12 +193,47 @@ def test_both_kernel_sources_are_built():
 
 
 @pytest.mark.parametrize(
-    "name, value", [("kTile", pgram.PRODUCT_TILE), ("kFrameBlock", pgram.FRAME_BLOCK)]
+    "name, value",
+    [
+        ("kTile", pgram.PRODUCT_TILE),
+        ("kFrameBlock", pgram.FRAME_BLOCK),
+        ("kBadWorkspace", pgram._BAD_WORKSPACE),
+    ],
 )
 def test_wrapper_constants_match_the_kernel_header(name, value):
-    """The wrapper sizes the workspace with the header's tile and frame block."""
+    """The wrapper sizes the workspace with the header's tile and frame block
+    (the C entry refuses any other layout with kBadWorkspace)."""
     text = (_build.CSRC / "gram_tc.cuh").read_text()
-    assert f"constexpr int {name} = {value};" in text
+    assert re.search(rf"constexpr int {name} = {value};", text)
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_argtypes_match_the_c_entry(tiled):
+    """The ctypes argument list is the C entry's parameter list, type by
+    type: pointers, ints (sizes and the workspace layout), floats."""
+    source, symbol = pgram._ENTRIES[tiled]
+    text = (_build.CSRC / source).read_text()
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1)
+    kinds = []
+    for param in params.split(","):
+        decl = param.strip()
+        if "*" in decl:
+            kinds.append(ctypes.c_void_p)
+        elif decl.startswith("int "):
+            kinds.append(ctypes.c_int)
+        elif decl.startswith("float "):
+            kinds.append(ctypes.c_float)
+        else:
+            raise AssertionError(f"unexpected parameter {decl!r}")
+    assert kinds == pgram._ARGTYPES
+    assert "int tc, int k_alloc" in " ".join(params.split())
+
+
+def test_stage_times_needs_the_card():
+    _, p, mask, k = _packed(CASES[0])
+    gpos, cg, fg, cf, kc = p
+    with pytest.raises(ValueError, match="CUDA"):
+        pgram.stage_times(False, gpos, cg, fg, torch.as_tensor(mask), cf, kc, k, WIDTH, CLIP)
 
 
 # ---- the tensor-core kernels' host logic and numerics, modelled on the CPU --
@@ -296,13 +333,15 @@ def _config3_rows(n_frames):
     [(3, True, True), (1, True, False), (3, False, False)],
     ids=["split, stage products (the kernels)", "one TF32 pass", "split, truncating chunk sums"],
 )
-def test_tensor_core_gram_numerics(passes, fresh, within):
-    """3xTF32 with each 32-row stage's products summed in the tensor core,
-    rounded fp32 sums of the stages over the kernels' chunk length, and fp64
-    totals lies within 1e-6 of the largest
-    entry of a float64 sum (chip_smoke.py's GRAM_REL_LIMIT). A single TF32
-    pass does not, and neither does the split when the tensor core's
-    truncating accumulator carries the chunk, so the bound discriminates."""
+def test_tensor_core_numerics_model(passes, fresh, within):
+    """A torch model of the kernels' arithmetic, not the kernels: 3xTF32 with
+    each 32-row stage's products summed in the tensor core, rounded fp32
+    sums of the stages over the kernels' chunk length, and fp64 totals lies
+    within 1e-6 of the largest entry of a float64 sum (chip_smoke.py's
+    GRAM_REL_LIMIT). A single TF32 pass does not, and neither does the split
+    when the tensor core's truncating accumulator carries the chunk, so the
+    bound discriminates. The kernels themselves are held to the same limit
+    on the card by chip_smoke.py."""
     n_frames = 120
     rows = _config3_rows(n_frames)[:1]
     assert rows.shape == (1, 3 * n_frames, 1280)
@@ -325,12 +364,12 @@ def test_tf32_rounding_model():
     np.testing.assert_array_equal((hi.double() + lo.double()).numpy(), x.double().numpy())
 
 
-def _stored_by_kernel(square, g_pad, n_basis):
-    """What the kernels' two stores write from the product tiles of a flat
-    (S, K_pad, K_pad) square, element by element as csrc/site_grams.cu
-    (FlatStore) and csrc/site_grams_tiled.cu (PairStore) do: every element
-    i <= j of every upper-triangle 128x128 tile over k_alloc, clipped to
-    K_pad. Unwritten entries stay NaN."""
+def _store_model(square, g_pad, n_basis):
+    """A numpy model of the kernels' two stores: what FlatStore
+    (csrc/site_grams.cu) and PairStore (csrc/site_grams_tiled.cu) write from
+    the product tiles of a flat (S, K_pad, K_pad) square, by their index
+    formulas: every element i <= j of every upper-triangle 128x128 tile over
+    k_alloc, clipped to K_pad. Unwritten entries stay NaN."""
     s, k_pad, _ = square.shape
     n_tiles = -(-k_pad // pgram.PRODUCT_TILE)
     b = 1 + n_basis
@@ -357,13 +396,15 @@ def _stored_by_kernel(square, g_pad, n_basis):
 
 
 @pytest.mark.parametrize("g, k, s", [(5, 4, 3), (17, 3, 1), (16, 1, 2), (145, 7, 1)])
-def test_kernel_stores_map_tiles_onto_both_contracts(g, k, s):
+def test_store_model_maps_tiles_onto_both_contracts(g, k, s):
     """The pair store's index map over 128-tiles that cross the ragged G_pad
     block edges rebuilds site_grams_tiled_plain's tiles exactly and covers
     every entry; the flat store gives the symmetric square, whose pairs
-    mirror_tiles reassembles."""
-    raw, _, k = _raw(3, t=16, s=s, g=g, k=k)
-    arrays, centers = raw, _
+    mirror_tiles reassembles. This holds the index formulas, copied into
+    ``_store_model``; the CUDA stores themselves are held to the plain
+    versions on the card by chip_smoke.py's edge shapes (G_pad 16 to 1,136,
+    n_basis 1 to 7)."""
+    arrays, centers, k = _raw(3, t=16, s=s, g=g, k=k)
     coords, forces, mask, cmap, group_mean, onehot, counts = map(torch.as_tensor, arrays)
     gpos, cg, fg, cf, kc = pgram.pack_operands(
         coords, forces, mask, cmap, group_mean, onehot, counts, 0.7, k,
@@ -377,7 +418,7 @@ def test_kernel_stores_map_tiles_onto_both_contracts(g, k, s):
     )
     upper = torch.triu(square)
     sym = (upper + torch.triu(square, 1).transpose(1, 2)).numpy()
-    flat, pairs = _stored_by_kernel(square.numpy(), g_pad, k)
+    flat, pairs = _store_model(square.numpy(), g_pad, k)
     assert not np.isnan(flat).any() and not np.isnan(pairs).any()
     np.testing.assert_array_equal(flat, sym)
     scale = float(tiles.abs().max()) + 1.0
