@@ -10,16 +10,26 @@ default (``device=None`` means ``"cuda"``); pass ``device="cpu"`` to run on
 the host. The per-site featurized Gram, the hot op of the featurized fit,
 is a hand-written CUDA kernel (``csrc/site_grams.cu``) built on first use;
 the sweep-scale site-blocked fit (``qp.fused_gb_linear_map_blocked``) runs
-a second one (``csrc/site_grams_tiled.cu``).
+a second one (``csrc/site_grams_tiled.cu``). The static linear map
+(``qp_linear_map``, the default method) and the constraint finder run as
+plain torch on the device.
 
 Primary entry point: :func:`project_forces`.
 """
 
 # ruff: noqa: F401
 from .trajectory import Trajectory
-from .agg import project_forces, force_smoothness
+from .agg import project_forces, project_forces_grid_cv, force_smoothness
+from .constraints import guess_pairwise_constraints
 from .map import LinearMap, TLinearMap
-from .qp import qp_feat_linear_map, id_feat, gb_feat, Multifeaturize
+from .qp import (
+    qp_linear_map,
+    constraint_aware_uni_map,
+    qp_feat_linear_map,
+    id_feat,
+    gb_feat,
+    Multifeaturize,
+)
 from .utils.funcs import Curry
 
 __version__ = "0.1.0"

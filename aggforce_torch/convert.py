@@ -1,6 +1,7 @@
 """Carry a map fitted by the JAX package into the port.
 
-A JAX ``FusedGBMap`` (inside a ``CLAFTMap``) is defined by plain arrays: its
+A fitted static linear map (a ``SeperableTMap`` of two linear maps, as
+``qp_linear_map`` returns) is defined by its two standard matrices. A JAX ``FusedGBMap`` (inside a ``CLAFTMap``) is defined by plain arrays: its
 per-site coefficients (``tmap.force_map.tags["coef_list"]``), the coordinate
 map's standard matrix, and the fit's group factorization (``onehot`` and
 basis ``centers`` from ``group_factorization``), plus ``kbt`` and the
@@ -13,7 +14,7 @@ from typing import Mapping
 
 import numpy as np
 
-from .map import CLAFTMap, TLinearMap
+from .map import CLAFTMap, SeperableTMap, TLinearMap
 from .qp.fusedfeat import FusedGBMap, GBFeatSpec
 from .utils.device import DeviceLike, resolve_device
 
@@ -22,7 +23,21 @@ def linear_map_from_numpy(
     standard_matrix: np.ndarray, device: DeviceLike = None
 ) -> TLinearMap:
     """A TLinearMap with the given (n_cg_sites, n_fg_sites) standard matrix."""
-    return TLinearMap(mapping=np.asarray(standard_matrix), device=device)
+    # a copy: the matrix may be a read-only view of another package's array
+    return TLinearMap(mapping=np.array(standard_matrix), device=device)
+
+
+def separable_map_from_numpy(
+    coord_mat: np.ndarray, force_mat: np.ndarray, device: DeviceLike = None
+) -> SeperableTMap:
+    """The port's SeperableTMap of two TLinearMaps from a fitted linear map's
+    coordinate and force standard matrices (``tmap.coord_map.standard_matrix``
+    and ``tmap.force_map.standard_matrix``)."""
+    dev = resolve_device(device)
+    return SeperableTMap(
+        coord_map=linear_map_from_numpy(coord_mat, device=dev),
+        force_map=linear_map_from_numpy(force_mat, device=dev),
+    )
 
 
 def fused_map_from_numpy(

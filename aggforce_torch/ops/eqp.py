@@ -8,8 +8,13 @@ have equality constraints only, so the KKT conditions are linear and a
 factor-once/solve-many range-space (Schur-complement) method replaces the
 reference's iterative OSQP loop. This module provides:
 
+  * :func:`eqp_solve_auglag` / :func:`batched_eqp_solve_auglag` — the
+    per-problem device solver: augmented operator, lazily shifted Cholesky,
+    Schur tail with early-exit refinement and a residual per problem;
   * :func:`batched_eqp_solve_shared` — many fits sharing the same per-site
     cost matrices P: each P is factorized once and reused by every fit;
+  * :func:`eqp_solve` / :func:`batched_eqp_solve` — regularized-LU KKT
+    solves with refinement (``torch.linalg.lu_factor``);
   * :func:`eqp_solve_host` — the float64 numpy/LAPACK oracle, the
     escalation target of every fit.
 
@@ -225,6 +230,131 @@ def batched_eqp_solve_shared(
     if return_resid:
         return x, resid
     return x
+
+
+def batched_eqp_solve_auglag(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    rho: float = 0.0,
+    delta: float = 1e-6,
+    delta_fallback: float = 3e-4,
+    iters: int = 10,
+    return_resid: bool = False,
+):
+    r"""Batched direct range-space equality-QP solve (Cholesky only).
+
+    Solves min x^T P x s.t. A x = b per batch entry through the augmented
+    operator M = P + rho A^T A + delta I (same minimizer; rho bounds the
+    condition number along constraint directions). P: (s, n, n); A:
+    (s, m, n); B: (s, m, k) -> (s, n, k). M is factored with the lazy shift
+    escalation (delta, then delta_fallback, for the failing problems only),
+    Z = M^{-1} A^T comes from a Cholesky solve, and the Schur tail gives x
+    with at most ``iters`` refinement sweeps.
+
+    With ``return_resid=True`` also returns the (s,) per-problem max
+    equilibrated constraint violation ``max |An x - Bn|``, the diagnostic
+    callers use to escalate unconverged solves to the float64 oracle.
+    """
+    Pn, An, Bn = _equilibrate(P, A, B)
+    AnT = An.transpose(1, 2)
+    # the rho*A^T A term keeps M well-conditioned along constraint
+    # directions even when P is (near-)singular there; the minimizer of
+    # x^T P x s.t. Ax = b is unchanged by adding rho|Ax|^2
+    M = Pn + rho * torch.matmul(AnT, An)
+    chol_m = _lazy_shift_factor(M, [delta, delta_fallback])
+    Z = torch.cholesky_solve(AnT, chol_m)  # (s, n, m)
+    x, resid = _schur_tail(Z, An, Bn, delta, delta_fallback, iters, _REFINE_TOL)
+    if return_resid:
+        return x, resid
+    return x
+
+
+def eqp_solve_auglag(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    rho: float = 0.0,
+    delta: float = 1e-6,
+    delta_fallback: float = 3e-4,
+    iters: int = 10,
+    return_resid: bool = False,
+):
+    """Single-problem :func:`batched_eqp_solve_auglag` (batch of one).
+
+    With ``return_resid=True`` the residual is a scalar.
+    """
+    out = batched_eqp_solve_auglag(
+        P[None], A[None], B[None], rho=rho, delta=delta,
+        delta_fallback=delta_fallback, iters=iters, return_resid=return_resid,
+    )
+    if return_resid:
+        x, resid = out
+        return x[0], resid[0]
+    return out[0]
+
+
+def batched_eqp_solve(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    delta: float = 1e-6,
+    refine_iters: int = 4,
+) -> torch.Tensor:
+    """Regularized-LU KKT solve with refinement, batched over a leading axis.
+
+    P: (s, n, n); A: (s, m, n); B: (s, m, k) -> (s, n, k). Each equilibrated
+    KKT matrix is factored once with ``delta`` on its diagonal blocks, and
+    ``refine_iters`` sweeps of iterative refinement run against the
+    unregularized operator, as :func:`eqp_solve_host` does in float64.
+
+    The JAX package routes this call to its Cholesky solver on the TPU,
+    whose compiler cannot build pivoted LU at these sizes; here the LU
+    route is always taken.
+    """
+    s, n, m = P.shape[0], P.shape[-1], A.shape[1]
+    p_scale = torch.diagonal(P, dim1=1, dim2=2).sum(-1) / n + 1e-30
+    Pn = P / p_scale[:, None, None]
+    row_norm = torch.linalg.norm(A, dim=2, keepdim=True) + 1e-30
+    An, Bn = A / row_norm, B / row_norm
+    eye_n = torch.eye(n, dtype=P.dtype, device=P.device)
+    eye_m = torch.eye(m, dtype=P.dtype, device=P.device)
+    AnT = An.transpose(1, 2)
+    K_reg = torch.cat(
+        [
+            torch.cat([Pn + delta * eye_n, AnT], 2),
+            torch.cat([An, (-delta * eye_m).expand(s, m, m)], 2),
+        ],
+        1,
+    )
+    K_true = torch.cat(
+        [torch.cat([Pn, AnT], 2), torch.cat([An, An.new_zeros((s, m, m))], 2)], 1
+    )
+    lu, piv = torch.linalg.lu_factor(K_reg)
+    rhs = torch.cat([Bn.new_zeros((s, n, Bn.shape[2])), Bn], 1)
+    Z = torch.linalg.lu_solve(lu, piv, rhs)
+    for _ in range(refine_iters):
+        Z = Z + torch.linalg.lu_solve(lu, piv, rhs - torch.matmul(K_true, Z))
+    return Z[:, :n]
+
+
+def eqp_solve(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    delta: float = 1e-6,
+    refine_iters: int = 4,
+) -> torch.Tensor:
+    """Solve min x^T P x s.t. A x = b for every column b of B.
+
+    Single-problem :func:`batched_eqp_solve`: a regularized-LU KKT solve
+    with iterative refinement against the unregularized operator. The JAX
+    package routes it to its Cholesky solver on the TPU; here the LU route
+    is always taken.
+    """
+    return batched_eqp_solve(
+        P[None], A[None], B[None], delta=delta, refine_iters=refine_iters
+    )[0]
 
 
 def eqp_solve_host(

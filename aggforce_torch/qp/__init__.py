@@ -1,5 +1,13 @@
-"""Force-map optimizers: the featurized fit and its featurizers."""
+"""Force-map optimizers: uniform aggregation, the linear QP, the featurized fit."""
 # ruff: noqa: F401
+from .qplinear import (
+    qp_linear_map,
+    qp_form,
+    make_bond_constraint_matrix,
+    SolverOptions,
+    DEFAULT_SOLVER_OPTIONS,
+)
+from .basicagg import constraint_aware_uni_map
 from .featlinearmap import (
     FeatZipper,
     Multifeaturize,

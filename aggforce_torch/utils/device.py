@@ -6,11 +6,46 @@ only when the caller asks for it (``device="cpu"``) or hands in CPU tensors:
 a missing card is an error, never a silent fall back to the host.
 """
 
+from contextlib import contextmanager
 from typing import Union
 
 import torch
 
 DeviceLike = Union[None, str, torch.device]
+
+
+@contextmanager
+def full_fp32():
+    """float32 cuBLAS products at full precision (no TF32) inside the block.
+
+    The linear fit's Gram and solves, like the JAX package's
+    ``precision="highest"``, must not round their operands to TF32, whatever
+    the process has set; the setting is restored on exit. torch refuses a
+    mix of its two TF32 switches, so the one in use is the one flipped: the
+    legacy ``float32_matmul_precision`` reads fine unless the newer
+    ``fp32_precision`` switch has been set, and then it raises.
+    """
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        legacy = None
+    if legacy == "highest":
+        yield
+        return
+    if legacy is not None:
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(legacy)
+        return
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.fp32_precision
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = prev
 
 
 def resolve_device(device: DeviceLike = None, *arrays) -> torch.device:

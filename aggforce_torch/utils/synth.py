@@ -1,8 +1,11 @@
-"""Synthetic molecular-trajectory fixtures (numpy, seeded).
+"""Synthetic molecular-trajectory fixtures (seeded).
 
-A copy of ``synthesize_trajectory`` from the JAX package's ``utils/synth.py``
-so both packages build the same trajectories from the same seed. The
-fixtures have:
+``synthesize_trajectory``, ``synthesize_protein_fixture`` and
+``synthesize_dimer_fixture`` are copies of the JAX package's
+``utils/synth.py`` (numpy), so both packages build the same trajectories
+from the same seed. ``synthesize_trajectory_device`` builds the same kind of
+trajectory on the torch device, with a torch generator: its random stream
+differs from numpy's. The fixtures have:
 
   * exact holonomic pair constraints (constrained groups move rigidly, so
     their pairwise distances are constant);
@@ -13,11 +16,18 @@ fixtures have:
   * per-atom thermal noise.
 """
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from ..constraints.tools import reduce_constraint_sets
+from .device import DeviceLike, resolve_device
+from .pdblite import guess_h_bond_groups, pdb_coordinates
+
+# frames built per step of synthesize_trajectory_device: its transient
+# buffers stay ~1 GB at 3,000 atoms beside the two full outputs
+DEVICE_BLOCK = 8192
 
 
 def synthesize_trajectory(
@@ -118,3 +128,133 @@ def synthesize_trajectory(
     group_sum = np.add.reduceat(raw[:, order, :], seg_starts, axis=1)
     forces += raw - group_sum[:, unit_of_site, :] * inv_size[None, :, None]
     return coords, forces
+
+
+def _units(n_sites: int, constraint_groups):
+    """Unit (rigid group, or loose site) of each site, 1/group size, and a
+    0/1 mask of the constrained sites."""
+    groups = [sorted(g) for g in reduce_constraint_sets(set(constraint_groups))]
+    grouped = set()
+    for g in groups:
+        grouped.update(g)
+    loose = sorted(set(range(n_sites)) - grouped)
+    unit_of_site = np.empty(n_sites, dtype=np.int64)
+    inv_size = np.empty(n_sites, dtype=np.float32)
+    constrained = np.zeros(n_sites, dtype=np.float32)
+    for u, g in enumerate(groups):
+        unit_of_site[g] = u
+        inv_size[g] = 1.0 / len(g)
+        constrained[g] = 1.0
+    for u, site in enumerate(loose, start=len(groups)):
+        unit_of_site[site] = u
+        inv_size[site] = 1.0
+    return unit_of_site, len(groups) + len(loose), inv_size, constrained
+
+
+def synthesize_trajectory_device(
+    base_coords: np.ndarray,
+    constraint_groups: List[frozenset],
+    n_frames: int,
+    seed: int = 0,
+    motion_scale: float = 0.02,
+    internal_force_scale: float = 60.0,
+    kbt: float = 0.6955215,
+    noise_force_scale: float = 1.5,
+    device: DeviceLike = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Device-resident twin of :func:`synthesize_trajectory` (float32 tensors).
+
+    Same construction (exact rigid groups, Boltzmann tether, zero-sum
+    constraint forces) with a ``torch.Generator`` seeded on the device and
+    on-device gathers, built in blocks of at most ``DEVICE_BLOCK`` frames
+    written into the two (n_frames, n_sites, 3) outputs — for the
+    100k-frame sweep, where host generation and the upload would dominate.
+    The random stream differs from the numpy twin's; the output is
+    deterministic per seed on a given device. ``device`` defaults to the
+    GPU.
+    """
+    dev = resolve_device(device)
+    n_sites = base_coords.shape[0]
+    unit_np, n_units, inv_np, cmask_np = _units(n_sites, constraint_groups)
+    f32 = dict(dtype=torch.float32, device=dev)
+    uos = torch.as_tensor(unit_np, device=dev)
+    inv = torch.as_tensor(inv_np, **f32)[None, :, None]
+    cmask = torch.as_tensor(cmask_np, **f32)[None, :, None]
+    base = torch.as_tensor(np.asarray(base_coords), **f32)[None]
+    k_spring = kbt / motion_scale**2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    coords = torch.empty((n_frames, n_sites, 3), **f32)
+    forces = torch.empty((n_frames, n_sites, 3), **f32)
+    for start in range(0, n_frames, DEVICE_BLOCK):
+        block = min(DEVICE_BLOCK, n_frames - start)
+        unit_disp = motion_scale * torch.randn(
+            (block, n_units, 3), generator=gen, **f32
+        )
+        disp = unit_disp[:, uos]
+        raw = internal_force_scale * torch.randn(
+            (block, n_sites, 3), generator=gen, **f32
+        ) * cmask
+        # zero-sum intra-group (constraint) forces: subtract each group's
+        # mean, summed by unit
+        gsum = raw.new_zeros((block, n_units, 3)).index_add_(1, uos, raw)
+        internal = raw - gsum[:, uos] * inv
+        noise = noise_force_scale * torch.randn(
+            (block, n_sites, 3), generator=gen, **f32
+        )
+        coords[start : start + block] = base + disp
+        forces[start : start + block] = (-k_spring * inv) * disp + internal + noise
+    return coords, forces
+
+
+def synthesize_protein_fixture(
+    pdb_path: str,
+    n_frames: int,
+    seed: int = 0,
+    **kwargs,
+) -> Dict[str, np.ndarray]:
+    """CLN025-style fixture from a PDB: coords, forces, kbt, constraints."""
+    base = pdb_coordinates(pdb_path)
+    groups = guess_h_bond_groups(pdb_path)
+    coords, forces = synthesize_trajectory(
+        base, groups, n_frames=n_frames, seed=seed, **kwargs
+    )
+    return {
+        "coords": coords,
+        "forces": forces,
+        "kbt": np.float64(0.6955215),  # 350 K in kcal/mol, reference convention
+        "constraint_groups": groups,
+    }
+
+
+def synthesize_dimer_fixture(
+    n_frames: int = 500, seed: int = 7
+) -> Dict[str, np.ndarray]:
+    """Flexible two-molecule fixture (no constraints).
+
+    Intramolecular forces are large and zero-sum per molecule, so the optimal
+    force map for an oxygen-slice coordinate map aggregates whole molecules —
+    the same qualitative structure as the reference's water-dimer fixture.
+    """
+    rng = np.random.default_rng(seed)
+    base = np.array(
+        [
+            [0.0, 0.0, 0.0],
+            [0.096, 0.0, 0.0],
+            [-0.024, 0.093, 0.0],
+            [0.30, 0.0, 0.0],
+            [0.396, 0.0, 0.0],
+            [0.276, 0.093, 0.0],
+        ]
+    )
+    coords = base[None] + rng.normal(scale=0.01, size=(n_frames, 6, 3))
+    forces = rng.normal(scale=0.5, size=(n_frames, 6, 3))
+    for mol in ([0, 1, 2], [3, 4, 5]):
+        internal = rng.normal(scale=80.0, size=(n_frames, 3, 3))
+        internal -= internal.mean(axis=1, keepdims=True)
+        forces[:, mol, :] += internal
+    return {
+        "coords": coords.astype(np.float32),
+        "forces": forces.astype(np.float32),
+    }

@@ -37,11 +37,32 @@ fails:
    block must lie near a float64 witness solved on the card (the planted
    fault must not), and its peak device memory must stay within 24 GiB;
    then the fit's times and profile, and the tiled kernel's times;
-7. one JSON line listing every kernel; the last line is the result.
+7. the linear path, which runs no hand-written kernel (both launch counts
+   must read 0 after each of its runs, and ``qplinear.fit_routes`` must
+   show one device fit and no escalation per fit):
+   (a) config #1: ``aggforce_torch.project_forces`` with every default
+   (``qp_linear_map``, ``constrained_inds="auto"``) on phase 4's fixture on
+   the card. The detected pairs must be the 30 synthesized, |M F^T - I|
+   <= 1e-4, constrained pairs must share their columns of F, and the
+   mapped forces must lie within 3e-6 relative RMS of the float64 host fit
+   (a fit without constraints, the planted fault, must not). The same
+   holds for float64 forces, which must take the device route, and with
+   TF32 switched on for the process, which the fit must leave on;
+   ``constraint_aware_uni_map`` through ``project_forces`` must map to the
+   sums of each site's atoms and their partners; then detection and five
+   steady-state fits are timed;
+   (b) the linear sweep (bench.py:310-412, nothing cut): 100,000 frames x
+   3,000 atoms made on the card, detection on 256 frames must find the 750
+   pairs, two ``qp_linear_map`` fits, a profiled fit, the Gram against its
+   fp32 bound (over its unique entries), and the mapped forces of 4,096
+   frames within 1e-5 relative RMS of a float64 witness built apart from
+   the program's Gram and solver (the planted fault must not be);
+8. one JSON line listing every kernel; the last line is the result.
 
-The fixtures are the JAX bench's standalone geometry (bench.py:290-307)
-and its sweep geometry (bench.py:415-530), made from fixed seeds; nothing is
-read from outside the repository.
+The fixtures are the JAX bench's standalone geometry (bench.py:290-307),
+its featurized sweep geometry (bench.py:415-530) and its linear sweep
+geometry (bench.py:310-412), made from fixed seeds; nothing is read from
+outside the repository.
 """
 
 import json
@@ -78,6 +99,19 @@ PEAK_BYTES = 3.35e12
 TF32_PASSES = 3
 # the sweep fit's device-memory ceiling
 SWEEP_PEAK_LIMIT_GIB = 24.0
+# the linear path: orthogonality |M F^T - I|; config #1's mapped forces
+# against the float64 host fit, relative RMS (tests/test_golden.py:62); the
+# linear sweep's (bench.py:310-412) against its float64 witness on the first
+# SWEEP_CHECK_FRAMES frames (the BASELINE.json north star)
+ORTHO_LIMIT = 1e-4
+CONFIG1_REL_RMS_LIMIT = 3e-6
+LINEAR_SWEEP_FRAMES = 100_000
+LINEAR_SWEEP_ATOMS = 3_000
+SWEEP_CHECK_FRAMES = 4_096
+SWEEP_REL_RMS_LIMIT = 1e-5
+# frames per block of the sweep witness's float64 Gram: not the program's
+# block, and not a divisor of the frame count
+WITNESS_BLOCK = 3_000
 
 
 def log(msg: str) -> None:
@@ -597,11 +631,23 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
     return spec, launches, first_fit_s, peak_bytes
 
 
-def fit_breakdown(torch, fit, fit_s, top=12):
+def featurized_kind(name):
+    """The kind of a kernel of the featurized fits, by its name."""
+    if "site_grams" in name:
+        return "Gram kernel"
+    if any(w in name for w in ("potrf", "trsm", "syrk", "herk", "chol", "magma", "getrs", "trsv")):
+        return "solver factor/triangular kernels"
+    if "gemm" in name or "sm90_xmma" in name or "cutlass" in name:
+        return "matrix products (packing einsums, solver products)"
+    return "elementwise, copies, reductions (mirror, unpack, l2, equilibrate)"
+
+
+def fit_breakdown(torch, fit, fit_s, top=12, kind_of=featurized_kind):
     """One steady-state fit under torch.profiler: device time by kernel, the
     kernels' total against the profiled fit's own wall clock (the device's
     idle share) and against the unprofiled fit time ``fit_s``, and the
-    device time by kind of kernel."""
+    device time by kind of kernel (``kind_of`` maps a lowercase kernel name
+    to its kind). Returns (wall s, busy s, {kind: device s})."""
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only: with CPU ops recorded too, key_averages() spent
@@ -624,21 +670,13 @@ def fit_breakdown(torch, fit, fit_s, top=12):
         f"({fit_s * 1e3:.2f} ms)")
     kinds = {}
     for key, us, _ in kernels:
-        name = key.lower()
-        if "site_grams" in name:
-            kind = "Gram kernel"
-        elif any(w in name for w in ("potrf", "trsm", "syrk", "herk", "chol", "magma", "getrs", "trsv")):
-            kind = "solver factor/triangular kernels"
-        elif "gemm" in name or "sm90_xmma" in name or "cutlass" in name:
-            kind = "matrix products (packing einsums, solver products)"
-        else:
-            kind = "elementwise, copies, reductions (mirror, unpack, l2, equilibrate)"
+        kind = kind_of(key.lower())
         kinds[kind] = kinds.get(kind, 0.0) + us
     for kind, us in sorted(kinds.items(), key=lambda k: -k[1]):
         log(f"  {us / 1e3:11.3f} ms  {us / 1e6 / max(busy_s, 1e-12):6.1%}  {kind}")
     for key, us, count in sorted(kernels, key=lambda k: -k[1])[:top]:
         log(f"  {us / 1e3:11.3f} ms  x{count:<5d} {key[:90]}")
-    return wall_s, busy_s
+    return wall_s, busy_s, {kind: us / 1e6 for kind, us in kinds.items()}
 
 
 def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
@@ -1042,6 +1080,384 @@ def phase_sweep(torch, np, smi):
     return launches, max_err, times
 
 
+def linear_kind(name):
+    """The kind of a kernel of the linear fit, by its name."""
+    if "indexfunc" in name or "index_add" in name:
+        return "reduced design rows (index_add_)"
+    if any(w in name for w in ("potrf", "trsm", "syrk", "herk", "chol", "magma", "getrs", "trsv")):
+        return "solver factor/triangular kernels"
+    if "gemm" in name or "sm90_xmma" in name or "cutlass" in name:
+        return "matrix products (the Gram's addmm, solver products)"
+    return "elementwise, copies (block transposes), reductions"
+
+
+def rel_rms(torch, got, ref):
+    """RMS of ``got - ref`` relative to the RMS of ``ref``, in float64."""
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    return float(torch.sqrt(torch.mean((got - ref) ** 2) / torch.mean(ref**2)))
+
+
+def reset_counts():
+    """Every launch and route count to 0, just before a path is driven."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_tiled
+    from aggforce_torch.qp.qplinear import fit_routes
+
+    site_grams.launches = site_grams_tiled.launches = 0
+    fit_routes.clear()
+
+
+def read_counts(label):
+    """Log the counts a linear path left, and fail unless both Gram kernels'
+    launch counts read 0 (the linear path runs no hand-written kernel);
+    returns the fit routes it took."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_tiled
+    from aggforce_torch.qp.qplinear import fit_routes
+
+    routes = dict(fit_routes)
+    launched = site_grams.launches, site_grams_tiled.launches
+    log(f"{label}: fit routes {routes}; site_grams launches {launched[0]}, "
+        f"site_grams_tiled launches {launched[1]} (must read 0)")
+    if launched != (0, 0):
+        fail(f"{label}: a Gram kernel launched on the linear path: {launched}")
+    return routes
+
+
+def linear_map_gates(torch, np, tmap, cmap, constraints):
+    """|M F^T - I| <= ORTHO_LIMIT, and equal columns of F for every
+    constrained pair."""
+    fmat = np.asarray(tmap.force_map.standard_matrix, dtype=np.float64)
+    ortho = float(np.abs(cmap.standard_matrix @ fmat.T - np.eye(cmap.n_cg_sites)).max())
+    tied = max((float(np.abs(fmat[:, i] - fmat[:, j]).max())
+                for i, j in (sorted(p) for p in constraints)), default=0.0)
+    log(f"  max |M F^T - I| = {ortho:.3e} (limit {ORTHO_LIMIT:.0e}); max |F[:, i] - "
+        f"F[:, j]| over the {len(constraints)} constrained pairs = {tied:.3e}")
+    if not ortho <= ORTHO_LIMIT:
+        fail(f"the linear map misses orthogonality: |M F^T - I| = {ortho:.3e}")
+    if tied != 0.0:
+        fail("constrained pairs do not share their force-map columns")
+
+
+def config1_float64_and_tf32(torch, coords, forces, cmap, groups, host, fit):
+    """Config #1 twice more with every default: float64 forces on the card
+    must stay there (one device fit, no host fit), and with TF32 switched on
+    for the process the detection and the fit must still meet their gates
+    (and the switch be left on). Both are held to the float64 host fit."""
+    import aggforce_torch
+    from aggforce_torch.qp import qplinear
+
+    reset_counts()
+    f64 = fit("auto", f=forces.double())
+    routes = read_counts("config #1, float64 forces on the card")
+    err64 = rel_rms(torch, f64, host)
+    log(f"  float64 forces: mapped forces rel RMS {err64:.3e} off the float64 host "
+        f"fit (limit {CONFIG1_REL_RMS_LIMIT:.0e}), dtype {f64.dtype}, on {f64.device}")
+    if routes != {"device": 1}:
+        fail(f"config #1: float64 forces did not take the device route alone: {routes}")
+    if not err64 <= CONFIG1_REL_RMS_LIMIT:
+        fail("config #1: the float64 device fit misses the float64 host fit")
+
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        reset_counts()
+        res = aggforce_torch.project_forces(coords, forces, cmap)
+        routes = read_counts("config #1 with TF32 on for the process")
+        still_on = matmul.allow_tf32
+        # the same fit with the full-fp32 scope bypassed, to show what the
+        # scope guards against (logged, not gated)
+        labels_np, r = qplinear.constraint_labels(cmap.n_fg_sites, res["constraints"])
+        unscoped, _ = qplinear._device_linear_fit.__wrapped__(
+            forces,
+            torch.as_tensor(labels_np, dtype=torch.int64, device="cuda"),
+            torch.as_tensor(cmap.standard_matrix, dtype=torch.float32, device="cuda"),
+            0.0,
+            r,
+        )
+    finally:
+        matmul.allow_tf32 = False
+    err = rel_rms(torch, res["mapped_forces"], host)
+    err_unscoped = rel_rms(torch, torch.einsum("sn,tnd->tsd", unscoped, forces), host)
+    log(f"  TF32 on: {len(res['constraints'])} pairs detected (equal: "
+        f"{res['constraints'] == set(groups)}), mapped forces rel RMS {err:.3e} "
+        f"(limit {CONFIG1_REL_RMS_LIMIT:.0e}), switch still on after the fit: "
+        f"{still_on}; the fit with its full-fp32 scope bypassed: {err_unscoped:.3e}")
+    if res["constraints"] != set(groups):
+        fail("config #1: with TF32 on, detection misses the synthesized pairs")
+    if routes != {"device": 1}:
+        fail(f"config #1: with TF32 on, the fit did not take the device route: {routes}")
+    if not err <= CONFIG1_REL_RMS_LIMIT:
+        fail("config #1: with TF32 on, the fit misses the float64 host fit")
+    if not still_on:
+        fail("config #1: the fit did not restore the process's TF32 switch")
+
+
+def uniform_map_check(torch, np, coords, forces, cmap, groups):
+    """``constraint_aware_uni_map`` through ``project_forces`` on the card
+    tensors, constraints detected: each cg site sums the forces of its
+    atoms and of their constraint partners, to 1e-6 relative RMS."""
+    import aggforce_torch
+    from aggforce_torch.qp import constraint_aware_uni_map
+
+    reset_counts()
+    res = aggforce_torch.project_forces(
+        coords, forces, cmap, method=constraint_aware_uni_map
+    )
+    read_counts("config #1, constraint_aware_uni_map")
+    members = np.zeros(cmap.standard_matrix.shape)
+    for s, row in enumerate(cmap.standard_matrix):
+        sites = set(np.nonzero(row)[0].tolist())
+        for pair in groups:
+            if sites & pair:
+                sites |= pair
+        members[s, sorted(sites)] = 1.0
+    expect = torch.einsum(
+        "sn,tnd->tsd", torch.as_tensor(members, device="cuda"), forces.double()
+    )
+    got = res["mapped_forces"]
+    err = rel_rms(torch, got, expect)
+    log(f"  constraint_aware_uni_map: {int(members.sum())} fg sites aggregated by "
+        f"{cmap.n_cg_sites} cg sites; mapped forces on {got.device}, rel RMS "
+        f"{err:.3e} off the sums taken here (limit 1e-6)")
+    if res["constraints"] != set(groups):
+        fail("config #1: the uniform map's detection misses the synthesized pairs")
+    if got.device.type != "cuda" or not err <= 1e-6:
+        fail("config #1: the uniform map's mapped forces are wrong or off the card")
+
+
+def phase_linear_config1(torch, np, coords_np, forces_np, cmap, groups, smi):
+    """Config #1 (bench.py:673-708) at the standalone width: project_forces
+    with every default (qp_linear_map, constrained_inds="auto") on tensors
+    on the card."""
+    import aggforce_torch
+    from aggforce_torch import Trajectory
+    from aggforce_torch.qp import qp_linear_map
+
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = aggforce_torch.project_forces(coords, forces, cmap)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    routes = read_counts("config #1, project_forces with every default")
+    found = result["constraints"]
+    log(f"config #1: first project_forces {first_s:.3f} s (detection, fit and "
+        f"mapping); {len(found)} pairs detected, equal to the "
+        f"{len(groups)} synthesized: {found == set(groups)}")
+    if found != set(groups):
+        fail("config #1: the detected constraints are not the synthesized pairs")
+    if routes != {"device": 1}:
+        fail(f"config #1: the fit did not take the device route alone: {routes}")
+    linear_map_gates(torch, np, result["tmap"], cmap, found)
+
+    def fit(constraints, f=forces, **kw):
+        return aggforce_torch.project_forces(
+            coords, f, cmap, constrained_inds=constraints, **kw
+        )["mapped_forces"]
+
+    host = fit(found, solver_args={"backend": "host"})
+    errs = {
+        "device fit (main path)": rel_rms(torch, result["mapped_forces"], host),
+        "planted fault: constrained_inds=set()": rel_rms(torch, fit(set()), host),
+    }
+    for name, err in errs.items():
+        log(f"  {name} vs the float64 host fit: mapped forces rel RMS {err:.3e} "
+            f"(limit {CONFIG1_REL_RMS_LIMIT:.0e})")
+    if not errs["device fit (main path)"] <= CONFIG1_REL_RMS_LIMIT:
+        fail("config #1: the device fit's mapped forces miss the float64 host fit")
+    if not errs["planted fault: constrained_inds=set()"] > CONFIG1_REL_RMS_LIMIT:
+        fail("config #1: the mapped-force gate does not reject the planted fault")
+
+    config1_float64_and_tf32(torch, coords, forces, cmap, groups, host, fit)
+    uniform_map_check(torch, np, coords, forces, cmap, groups)
+
+    traj = Trajectory(coords=coords, forces=forces)
+    det_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        aggforce_torch.guess_pairwise_constraints(coords)
+        det_s.append(time.perf_counter() - t0)
+    fit_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        qp_linear_map(traj, cmap, constraints=found)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+    fit_min, fit_med = min(fit_s), float(np.median(fit_s))
+    n_frames = coords.shape[0]
+    log(f"config #1 steady-state qp_linear_map (trajectory on the card): min "
+        f"{fit_min:.4f} s, median {fit_med:.4f} s -> {n_frames / fit_min:.1f} "
+        f"frames/s (min), {n_frames / fit_med:.1f} frames/s (median); all "
+        f"{', '.join(f'{x:.4f}' for x in fit_s)} s; detection "
+        f"{min(det_s):.4f} s (min of 3); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({smi})")
+
+
+def linear_sweep_fixture(torch):
+    """The JAX bench's linear sweep (bench.py:310-412), nothing cut: 3,000
+    atoms, 750 constraint pairs, a cg site every 46th atom (S = 66),
+    100,000 frames made on the card."""
+    import numpy as np
+
+    from aggforce_torch import LinearMap
+    from aggforce_torch.utils.synth import synthesize_trajectory_device
+
+    n = LINEAR_SWEEP_ATOMS
+    base = np.random.default_rng(0).normal(scale=1.5, size=(n, 3))
+    groups = [frozenset((i, i + 1)) for i in range(0, n // 2, 2)]
+    cmap = LinearMap([[i] for i in range(0, n, max(1, n // 64))], n_fg_sites=n)
+    coords, forces = synthesize_trajectory_device(
+        base, groups, LINEAR_SWEEP_FRAMES, seed=1, motion_scale=0.02
+    )
+    return coords, forces, cmap, groups
+
+
+def duplication_matrix(np, n, pairs):
+    """Dense duplication matrix C of ``pairs``, built here apart from the
+    program: sites joined by pairs (union-find) share one column."""
+    parent = list(range(n))
+
+    def root(i):
+        while parent[i] != i:
+            i = parent[i]
+        return i
+
+    for pair in pairs:
+        i, j = sorted(pair)
+        parent[root(j)] = root(i)
+    roots = [root(i) for i in range(n)]
+    col = {r: c for c, r in enumerate(sorted(set(roots)))}
+    mat = np.zeros((n, len(col)))
+    mat[np.arange(n), [col[r] for r in roots]] = 1.0
+    return mat
+
+
+def sweep_witness(torch, np, forces, cmap, constraints):
+    """The float64 witness, built apart from the program's Gram and solver:
+    C from ``duplication_matrix``, the Gram (F C)^T (F C) from dense float64
+    products on the card over WITNESS_BLOCK-frame blocks (a ragged last
+    block), and the equilibrated KKT system solved by numpy on the host.
+    Returns its (S, N) force map on the card, float64."""
+    con_np = duplication_matrix(np, cmap.n_fg_sites, constraints)
+    con = torch.as_tensor(con_np, device="cuda")
+    r, n = con.shape[1], forces.shape[1]
+    t0 = time.perf_counter()
+    gram = torch.zeros((r, r), dtype=torch.float64, device="cuda")
+    for start in range(0, forces.shape[0], WITNESS_BLOCK):
+        rows = forces[start : start + WITNESS_BLOCK].double().permute(0, 2, 1)
+        design = rows.reshape(-1, n) @ con
+        gram += design.T @ design
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = gram.cpu().numpy()
+    p = p / (np.trace(p) / r)
+    a = cmap.standard_matrix @ con_np
+    s = a.shape[0]
+    kkt = np.block([[p, a.T], [a, np.zeros((s, s))]])
+    rhs = np.vstack([np.zeros((r, s)), np.eye(s)])
+    x = np.linalg.solve(kkt, rhs)[:r]
+    log(f"  float64 witness: dense Gram on the card {gram_s:.3f} s (R = {r}, "
+        f"{WITNESS_BLOCK}-frame blocks), numpy KKT solve {time.perf_counter() - t0:.3f} s")
+    return torch.as_tensor(con_np @ x, device="cuda").T
+
+
+def phase_linear_sweep(torch, np, smi):
+    """The linear sweep end to end: detection on 256 frames and two
+    qp_linear_map fits at full width, a profiled fit, the Gram against its
+    bound, and the mapped forces of 4,096 frames against a float64 witness
+    (the planted fault, a fit without constraints, must fail)."""
+    from aggforce_torch import Trajectory, guess_pairwise_constraints
+    from aggforce_torch.qp import qp_linear_map
+    from aggforce_torch.qp.qplinear import FRAME_BLOCK, _linear_gram, constraint_labels
+    from aggforce_torch.utils.device import full_fp32
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    coords, forces, cmap, groups = linear_sweep_fixture(torch)
+    torch.cuda.synchronize()
+    log(f"linear sweep fixture on the card: {tuple(coords.shape)} frames x atoms "
+        f"x 3 (coords and forces {forces.numel() * 4 / 1e9:.2f} GB each), "
+        f"{cmap.n_cg_sites} cg sites, {time.perf_counter() - t0:.3f} s")
+    traj = Trajectory(coords=coords, forces=forces)
+
+    def detect_and_fit():
+        t0 = time.perf_counter()
+        found = guess_pairwise_constraints(coords[:256])
+        det_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tmap = qp_linear_map(traj, cmap, constraints=found)
+        torch.cuda.synchronize()
+        return found, tmap, det_s, time.perf_counter() - t0
+
+    reset_counts()
+    found, tmap, det_s, first_s = detect_and_fit()
+    routes = read_counts("linear sweep, first fit")
+    log(f"linear sweep: detection {det_s:.3f} s on 256 frames ({len(found)} "
+        f"pairs, equal to the {len(groups)} synthesized: {found == set(groups)}); "
+        f"first qp_linear_map {first_s:.3f} s -> "
+        f"{LINEAR_SWEEP_FRAMES / first_s:.1f} frames/s")
+    if found != set(groups):
+        fail("linear sweep: the detected constraints are not the 750 pairs")
+    if routes != {"device": 1}:
+        fail(f"linear sweep: the fit did not take the device route alone: {routes}")
+    linear_map_gates(torch, np, tmap, cmap, found)
+    reset_counts()
+    _, tmap, det2_s, second_s = detect_and_fit()
+    routes = read_counts("linear sweep, second fit")
+    if routes != {"device": 1}:
+        fail(f"linear sweep: the second fit did not take the device route: {routes}")
+    log(f"linear sweep, second: detection {det2_s:.3f} s, qp_linear_map "
+        f"{second_s:.3f} s -> {LINEAR_SWEEP_FRAMES / second_s:.1f} frames/s ({smi})")
+    fit_breakdown(
+        torch, lambda: qp_linear_map(traj, cmap, constraints=found), second_s,
+        top=10, kind_of=linear_kind,
+    )
+
+    labels_np, r = constraint_labels(cmap.n_fg_sites, found)
+    labels = torch.as_tensor(labels_np, dtype=torch.int64, device="cuda")
+    with full_fp32():
+        gram_ms = cuda_ms(torch, lambda: _linear_gram(forces, labels, r), reps=3)
+    # the Gram is symmetric: the bound counts its R(R+1)/2 unique entries, as
+    # the kernel table does; the addmm computes all R^2
+    flops = 3.0 * LINEAR_SWEEP_FRAMES * r * (r + 1)
+    full_flops = 2.0 * 3 * LINEAR_SWEEP_FRAMES * r * r
+    n_bytes = 4.0 * (forces.numel() + r * (r + 1) / 2)
+    bound_ms = max(flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES) * 1e3
+    n_blocks = -(-LINEAR_SWEEP_FRAMES // FRAME_BLOCK)
+    log(f"linear sweep Gram (R = {r}, T = {LINEAR_SWEEP_FRAMES}, block transposes, "
+        f"index_add_ and addmm over {n_blocks} blocks): {gram_ms:.3f} ms; "
+        f"{flops:.4g} FLOP over the unique entries, fp32 bound {bound_ms:.3f} ms "
+        f"(operations at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s; the bytes take "
+        f"{n_bytes / PEAK_BYTES * 1e3:.3f} ms), {gram_ms / bound_ms:.2f}x the bound; "
+        f"the full product the addmm computes is {full_flops:.4g} FLOP -> "
+        f"{full_flops / gram_ms / 1e9:.2f} TFLOP/s, its bound "
+        f"{full_flops / PEAK_FP32_FLOPS * 1e3:.3f} ms ({smi})")
+
+    witness = sweep_witness(torch, np, forces, cmap, found)
+    head = forces[:SWEEP_CHECK_FRAMES]
+    expect = torch.einsum("sn,tnd->tsd", witness, head.double())
+    reset_counts()
+    fault = qp_linear_map(traj, cmap, constraints=set())
+    read_counts("linear sweep, planted fault")
+    errs = {}
+    for name, tm in (("device fit (main path)", tmap),
+                     ("planted fault: constraints=set()", fault)):
+        mapped = tm(Trajectory(coords=coords[:SWEEP_CHECK_FRAMES], forces=head)).forces
+        errs[name] = rel_rms(torch, mapped, expect)
+        log(f"  {name}: mapped forces of {SWEEP_CHECK_FRAMES} frames vs the "
+            f"float64 witness, rel RMS {errs[name]:.3e} (limit {SWEEP_REL_RMS_LIMIT:.0e}); "
+            f"finite {bool(torch.isfinite(mapped).all())}")
+    if not errs["device fit (main path)"] <= SWEEP_REL_RMS_LIMIT:
+        fail("linear sweep: the fit's mapped forces miss the float64 witness")
+    if not errs["planted fault: constraints=set()"] > SWEEP_REL_RMS_LIMIT:
+        fail("linear sweep: the witness gate does not reject the planted fault")
+    log(f"linear sweep: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB ({smi})")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1061,6 +1477,8 @@ def main() -> int:
     times = phase_times(torch, np, coords, forces, cmap, groups, spec, ops)
     del ops
     tiled_launches, tiled_err, tiled_times = phase_sweep(torch, np, smi)
+    phase_linear_config1(torch, np, coords, forces, cmap, groups, smi)
+    phase_linear_sweep(torch, np, smi)
     kernels = [
         {
             "name": "site_grams",

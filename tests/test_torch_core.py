@@ -221,3 +221,83 @@ def test_augmented_and_composed_tmaps_match_jax(as_tensor):
     got_f = tf.numpy() if as_tensor else tf
     np.testing.assert_allclose(got_c, np.asarray(jc), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got_f, np.asarray(jf), rtol=1e-6, atol=1e-6)
+
+
+_PDB = """\
+ATOM      1  N   GLY A   1      -0.966   0.493   1.500  1.00  0.00           N
+ATOM      2  H   GLY A   1      -1.800   0.100   1.200  1.00  0.00           H
+ATOM      3  CA  GLY A   1       0.257   0.418   0.692  1.00  0.00           C
+ATOM      4  HA  GLY A   1       0.300   1.300   0.100  1.00  0.00           H
+ATOM      5  C   GLY A   1      -0.094   0.017  -0.716  1.00  0.00           C
+ATOM      6  O   GLY A   1      -1.056  -0.682  -0.923  1.00  0.00           O
+ATOM      7  CA  ALA A   2       1.500   1.000  -1.500  1.00  0.00
+ENDMDL
+ATOM      8  CA  ALA A   2       9.000   9.000   9.000  1.00  0.00           C
+"""
+
+
+def test_pdblite_copy_matches_jax(tmp_path):
+    from aggforce_torch.utils import pdblite as ppdb
+    from aggforce_torch.utils.synth import synthesize_protein_fixture
+
+    from aggforce_tpu.utils import pdblite as jpdb
+    from aggforce_tpu.utils.synth import synthesize_protein_fixture as jax_fixture
+
+    path = tmp_path / "tiny.pdb"
+    path.write_text(_PDB)
+    path = str(path)
+    assert ppdb.read_pdb_atoms(path)[-1].element == "C"  # from the atom name
+    for fn in ("pdb_coordinates", "ca_map_from_pdb", "guess_h_bond_groups",
+               "n_atoms", "element_masses"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(ppdb, fn)(path), dtype=object),
+            np.asarray(getattr(jpdb, fn)(path), dtype=object),
+        )
+    assert ppdb.find_atom_indices(path, "^C") == jpdb.find_atom_indices(path, "^C")
+    got, expect = synthesize_protein_fixture(path, 20, seed=3), jax_fixture(path, 20, seed=3)
+    for key in ("coords", "forces"):
+        np.testing.assert_array_equal(got[key], expect[key])
+    assert got["constraint_groups"] == expect["constraint_groups"]
+
+
+def test_device_synthesis_structure():
+    """The device twin's random stream differs from numpy's, so it is held
+    to the construction: rigid groups, zero-sum constraint forces (with
+    the noise off, a group's forces sum to its tether force), the tether
+    itself on loose sites, and determinism per seed."""
+    from aggforce_torch.utils import synth
+
+    rng = np.random.default_rng(0)
+    n, kbt, scale = 30, 0.7, 0.02
+    base = rng.normal(scale=0.5, size=(n, 3))
+    groups = [frozenset((0, 1)), frozenset((4, 5, 6)), frozenset((10, 11))]
+    old = synth.DEVICE_BLOCK
+    synth.DEVICE_BLOCK = 64  # several blocks and a ragged last one
+    try:
+        coords, forces = synth.synthesize_trajectory_device(
+            base, groups, 150, seed=2, motion_scale=scale, kbt=kbt,
+            noise_force_scale=0.0, device="cpu",
+        )
+        again = synth.synthesize_trajectory_device(
+            base, groups, 150, seed=2, motion_scale=scale, kbt=kbt,
+            noise_force_scale=0.0, device="cpu",
+        )
+        other = synth.synthesize_trajectory_device(base, groups, 150, seed=3, device="cpu")
+    finally:
+        synth.DEVICE_BLOCK = old
+    assert coords.shape == forces.shape == (150, n, 3)
+    assert coords.dtype == forces.dtype == torch.float32
+    torch.testing.assert_close(again[0], coords, rtol=0, atol=0)
+    torch.testing.assert_close(again[1], forces, rtol=0, atol=0)
+    assert not torch.equal(other[0], coords)
+    c, f = coords.double().numpy(), forces.double().numpy()
+    disp = c - base[None]
+    k = kbt / scale**2
+    for g in groups:
+        g = sorted(g)
+        # the group moves rigidly: every member shares one displacement
+        np.testing.assert_allclose(disp[:, g], disp[:, g[:1]].repeat(len(g), 1), atol=1e-5)
+        # the constraint forces cancel within the group
+        np.testing.assert_allclose(f[:, g].sum(1), -k * disp[:, g[0]], rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(f[:, 20], -k * disp[:, 20], rtol=1e-4, atol=1e-3)
+    assert disp.std() == pytest.approx(scale, rel=0.05)

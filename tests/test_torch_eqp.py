@@ -104,3 +104,86 @@ def test_lazy_shift_escalates_only_failing_problems():
     chol = peqp._lazy_shift_factor(M, [1e-6, 1e-3])
     assert torch.isnan(chol[2]).all()
     assert torch.isfinite(chol[0]).all()
+
+
+def _per_problem(seed, s=3, n=12, m=4, k=2):
+    """Per-problem SPD cost matrices, constraint rows and targets."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(s, 3 * n, n))
+    P = (np.einsum("sti,stj->sij", x, x) + 0.1 * np.eye(n)).astype(np.float32)
+    A = rng.normal(size=(s, m, n)).astype(np.float32)
+    B = rng.normal(size=(s, m, k)).astype(np.float32)
+    return P, A, B
+
+
+def _batched_resid(A, B, x):
+    """Per-problem max equilibrated constraint violation, in float64."""
+    A = A.astype(np.float64)
+    norm = np.linalg.norm(A, axis=2, keepdims=True)
+    return np.abs((A / norm) @ x.astype(np.float64) - B / norm).max(axis=(1, 2))
+
+
+@pytest.mark.parametrize("seed, rho", [(10, 0.0), (11, 0.0), (12, 1.0)])
+def test_batched_auglag_matches_jax(seed, rho):
+    P, A, B = _per_problem(seed)
+    xj, rj = jeqp.batched_eqp_solve_auglag(
+        *map(jnp.asarray, (P, A, B)), rho=rho, return_resid=True
+    )
+    xp, rp = peqp.batched_eqp_solve_auglag(
+        *map(torch.as_tensor, (P, A, B)), rho=rho, return_resid=True
+    )
+    xj, xp = np.asarray(xj), xp.numpy()
+    assert np.abs(xp - xj).max() <= 1e-4 * np.abs(xj).max()
+    assert max(np.asarray(rj).max(), rp.numpy().max()) <= 1e-4
+    assert _batched_resid(A, B, xp).max() <= 1e-4
+
+
+def test_single_auglag_matches_jax():
+    P, A, B = _per_problem(13, s=1)
+    xj, rj = jeqp.eqp_solve_auglag(
+        *map(jnp.asarray, (P[0], A[0], B[0])), return_resid=True
+    )
+    xp, rp = peqp.eqp_solve_auglag(
+        *map(torch.as_tensor, (P[0], A[0], B[0])), return_resid=True
+    )
+    assert xp.shape == (12, 2) and rp.shape == ()
+    assert np.abs(xp.numpy() - np.asarray(xj)).max() <= 1e-4 * np.abs(xj).max()
+    assert max(float(rj), float(rp)) <= 1e-4
+
+
+@pytest.mark.parametrize("seed", [14, 15])
+def test_batched_lu_matches_jax(seed):
+    P, A, B = _per_problem(seed)
+    xj = np.asarray(jeqp.batched_eqp_solve(*map(jnp.asarray, (P, A, B))))
+    xp = peqp.batched_eqp_solve(*map(torch.as_tensor, (P, A, B))).numpy()
+    assert np.abs(xp - xj).max() <= 1e-4 * np.abs(xj).max()
+    assert _batched_resid(A, B, xp).max() <= 1e-4
+
+
+def test_single_lu_matches_jax_and_host_oracle():
+    P, A, B = _per_problem(16, s=1)
+    xj = np.asarray(jeqp.eqp_solve(*map(jnp.asarray, (P[0], A[0], B[0]))))
+    xp = peqp.eqp_solve(*map(torch.as_tensor, (P[0], A[0], B[0]))).numpy()
+    assert np.abs(xp - xj).max() <= 1e-4 * np.abs(xj).max()
+    # in float64 the LU route meets the host oracle's solution
+    x64 = peqp.eqp_solve(
+        *(torch.as_tensor(a, dtype=torch.float64) for a in (P[0], A[0], B[0])),
+        delta=1e-12,
+    ).numpy()
+    np.testing.assert_allclose(
+        x64, peqp.eqp_solve_host(P[0], A[0], B[0]), rtol=1e-8, atol=1e-10
+    )
+
+
+def test_auglag_single_problem_bit_equal_in_batch():
+    """Per-problem masking: a problem's numbers do not depend on its batch."""
+    P, A, B = _per_problem(17, s=4)
+    xb, rb = peqp.batched_eqp_solve_auglag(
+        *map(torch.as_tensor, (P, A, B)), iters=40, return_resid=True
+    )
+    for s in range(P.shape[0]):
+        x1, r1 = peqp.eqp_solve_auglag(
+            *map(torch.as_tensor, (P[s], A[s], B[s])), iters=40, return_resid=True
+        )
+        torch.testing.assert_close(x1, xb[s], rtol=0, atol=0)
+        torch.testing.assert_close(r1, rb[s], rtol=0, atol=0)

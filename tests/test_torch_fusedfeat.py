@@ -182,23 +182,6 @@ def test_recognizes_only_the_port_featurizer(system):
         )
 
 
-@pytest.mark.parametrize(
-    "kwargs, error, match",
-    [
-        ({"constrained_inds": "auto", "method": pt.qp_feat_linear_map},
-         NotImplementedError, "Queue 1 item 6"),
-        ({"constrained_inds": set(GROUPS)}, NotImplementedError, "Queue 1 item 6"),
-    ],
-)
-def test_unported_options_raise(system, kwargs, error, match):
-    coords, forces = system
-    with pytest.raises(error, match=match):
-        pt.project_forces(
-            coords, forces, pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
-            featurizer=_featurizer(pt), kbt=KBT, device="cpu", **kwargs,
-        )
-
-
 def test_use_kernel_true_needs_the_card(system):
     coords, forces = system
     with pytest.raises(ValueError, match="CUDA"):

@@ -18,7 +18,10 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, aggforce_torch, aggforce_torch.convert, "
         "aggforce_torch.ops.gram, aggforce_torch.ops._build, "
-        "aggforce_torch.qp.fusedfeat, aggforce_torch.utils.synth\n"
+        "aggforce_torch.qp.fusedfeat, aggforce_torch.utils.synth, "
+        "aggforce_torch.constraints.finder, aggforce_torch.qp.qplinear, "
+        "aggforce_torch.qp.basicagg, aggforce_torch.qp.cv, "
+        "aggforce_torch.native, aggforce_torch.utils.pdblite\n"
         "bad = [m for m in sys.modules if m in ('jax', 'aggforce_tpu') "
         "or m.startswith(('jax.', 'aggforce_tpu.'))]\n"
         "print(bad)\n"
@@ -110,9 +113,56 @@ def _gb_feat():
     gb_feat(coords, cmap, set(), outer=1.0, lazy=False)
 
 
+def _project_forces_defaults():
+    from aggforce_torch import project_forces
+
+    coords, forces, cmap = _fixture()
+    project_forces(coords, forces, cmap)
+
+
+def _linear_fit():
+    from aggforce_torch import Trajectory, qp_linear_map
+
+    coords, forces, cmap = _fixture()
+    qp_linear_map(Trajectory(coords=coords, forces=forces), cmap)
+
+
+def _finder():
+    from aggforce_torch import guess_pairwise_constraints
+
+    guess_pairwise_constraints(_fixture()[0])
+
+
+def _fold_probe():
+    from aggforce_torch.constraints.finder import fold_train_constraint_probe
+
+    fold_train_constraint_probe(_fixture()[0], [np.arange(4), np.arange(4, 8)])
+
+
+def _linear_cv():
+    from aggforce_torch.qp.cv import linear_map_cv
+
+    coords, forces, cmap = _fixture()
+    linear_map_cv(coords, forces, cmap, set(), l2_values=[0.0], n_folds=2)
+
+
+def _device_synthesis():
+    from aggforce_torch.utils.synth import synthesize_trajectory_device
+
+    synthesize_trajectory_device(np.zeros((4, 3)), [frozenset((0, 1))], 8)
+
+
+def _linear_map_carry():
+    from aggforce_torch.convert import separable_map_from_numpy
+
+    separable_map_from_numpy(np.eye(2, 6), np.eye(2, 6))
+
+
 @pytest.mark.parametrize(
     "entry",
-    [_project_forces, _fused_fit, _blocked_fit, _tlinear_map, _map_carry, _gb_feat],
+    [_project_forces, _fused_fit, _blocked_fit, _tlinear_map, _map_carry, _gb_feat,
+     _project_forces_defaults, _linear_fit, _finder, _fold_probe, _linear_cv,
+     _device_synthesis, _linear_map_carry],
     ids=lambda f: f.__name__.strip("_"),
 )
 def test_entry_points_need_cuda_unless_told(monkeypatch, entry):
@@ -120,3 +170,31 @@ def test_entry_points_need_cuda_unless_told(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
+
+
+def test_native_build_writes_only_under_build_dir(monkeypatch):
+    """The native solver builds into aggforce_torch/_build/ under a name keyed
+    by the source, the flags and the host, and writes nothing else in the
+    package."""
+    from aggforce_torch import native
+
+    assert native.BUILD_DIR == PORT / "_build"
+    lib = native.library_path()
+    assert lib.parent == native.BUILD_DIR and lib.name.startswith("libadmm_qp_")
+    monkeypatch.setattr(native.platform, "node", lambda: "another-host")
+    assert native.library_path() != lib
+
+    def tree():
+        return {
+            p for p in PORT.rglob("*")
+            if "_build" not in p.parts and "__pycache__" not in p.parts
+        }
+
+    before = tree()
+    target = native.BUILD_DIR / "libadmm_qp_build_test.so"
+    try:
+        assert native._build(target) is None
+        assert target.exists()
+    finally:
+        target.unlink(missing_ok=True)
+    assert tree() == before
