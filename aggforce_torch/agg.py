@@ -129,19 +129,20 @@ def project_forces_grid_cv(
     scores, sample standard deviations, and completed run counts.
 
     ``rng`` makes the fold shuffle reproducible. When the grid varies only
-    ``l2_regularization`` and the method is the linear optimizer,
-    ``fast="auto"`` dispatches to the single-pass CV
-    (:func:`aggforce_torch.qp.cv.linear_map_cv`): every (fold, l2) fit
+    ``l2_regularization`` and the method is the linear optimizer, or
+    ``featurizer`` and/or ``l2_regularization`` and the method is the
+    canonical featurized one (``qp_feat_linear_map`` with id+gb
+    featurizers), ``fast="auto"`` dispatches to the single-pass CV
+    (:func:`aggforce_torch.qp.cv.linear_map_cv`,
+    :func:`aggforce_torch.qp.cv.fused_gb_cv_grid`): every (fold, l2) fit
     reuses one set of per-fold Gram matrices and holdout scores are
-    computed algebraically — the same results, one trajectory pass instead
-    of n_folds * n_grid refits. A grid of the canonical featurized method
-    runs the generic per-fold refit loop under ``fast="auto"`` (the same scores)
-    and raises NotImplementedError under ``fast=True``: its single-pass CV
-    is not ported yet (ROADMAP Queue 1 item 8).
+    computed algebraically — the same results, one trajectory pass (per
+    featurizer) instead of n_folds * n_grid refits. ``fast=True`` raises
+    ValueError for a grid with no single-pass path.
     """
     if fast:
         dispatched = _fast_grid_cv(
-            cv_arg_dict, coords, forces, n_folds, rng, kwargs, fast
+            cv_arg_dict, coords, forces, n_folds, rng, kwargs
         )
         if dispatched is not None:
             return dispatched
@@ -193,15 +194,13 @@ def _fast_grid_cv(
     n_folds: int,
     rng: Optional[np.random.Generator],
     kwargs: Dict[str, Any],
-    fast: Union[bool, str] = "auto",
 ) -> Optional[Dict[str, Dict[NamedTuple, Any]]]:
-    """Dispatch to the single-pass linear CV when it applies, else None.
+    """Dispatch to a single-pass CV implementation when one applies, else None.
 
-    Covered grids: {l2_regularization} for the linear method. A grid that
-    the JAX package sends to its featurized single-pass CV ({featurizer[,
-    l2_regularization]} or {l2_regularization} of the canonical featurized
-    method) returns None under ``fast="auto"`` and raises
-    NotImplementedError under ``fast=True``.
+    Covered grids: {l2_regularization} for the linear and canonical
+    featurized methods, and {featurizer[, l2_regularization]} for the
+    canonical featurized method (every featurizer in the grid must be
+    recognized as a canonical id+gb featurization).
     """
     keys = set(cv_arg_dict.keys())
     if not keys or not keys <= {"l2_regularization", "featurizer"}:
@@ -214,7 +213,7 @@ def _fast_grid_cv(
     constrained = kw.pop("constrained_inds", PROJECT_FORCES_CNSTR_AUTO)
     device = kw.pop("device", None)
 
-    from .qp.cv import _fold_segments, linear_map_cv
+    from .qp.cv import _fold_segments, fused_gb_cv_grid, linear_map_cv
     from .qp.featlinearmap import qp_feat_linear_map
     from .qp.fusedfeat import recognize_canonical_featurizer
 
@@ -225,23 +224,18 @@ def _fast_grid_cv(
     else:
         l2_values = [kw.pop("l2_regularization", 1e1)]
     use_linear = method is qp_linear_map and not kw and not grid_feats
+    specs = kbt = None
+    n_cf = 20
     if not use_linear:
         if method is not qp_feat_linear_map:
             return None
         kbt = kw.pop("kbt", None)
-        kw.pop("n_constraint_frames", None)
+        n_cf = kw.pop("n_constraint_frames", 20)
         featurizers = grid_feats or [kw.pop("featurizer", None)]
         kw.pop("featurizer", None)
         specs = [recognize_canonical_featurizer(f) for f in featurizers]
         if any(s is None for s in specs) or kbt is None or kw:
             return None
-        if fast is True:
-            raise NotImplementedError(
-                "the featurized single-pass CV is not ported yet (ROADMAP "
-                "Queue 1 item 8); fast='auto' runs the generic per-fold "
-                "refit loop, which gives the same scores"
-            )
-        return None
 
     # materialize the generator ONCE so the eligibility probe, the fast CV,
     # and (on fallback) the generic refit loop all draw the same fold partition
@@ -283,22 +277,47 @@ def _fast_grid_cv(
                 if fold_set != constrained:
                     return None
 
-    raw = linear_map_cv(
-        coords, forces, coord_map, constrained,
-        l2_values=l2_values, n_folds=n_folds, rng=rng, mesh=mesh, device=device,
-    )
     results: Dict[str, Dict[Any, Any]] = {
         SCORES_KNAME: {},
         SDS_KNAME: {},
         NRUNS_KNAME: {},
     }
-    CVArgs = NamedTuple("CVArgs", [("l2_regularization", Any)])  # type: ignore[misc]
-    for l2 in l2_values:
-        mean_score, sd, n = raw[float(l2)]
-        label = CVArgs(l2_regularization=l2)
-        results[SCORES_KNAME][label] = mean_score
-        results[SDS_KNAME][label] = sd
-        results[NRUNS_KNAME][label] = n
+    if use_linear:
+        raw = linear_map_cv(
+            coords, forces, coord_map, constrained,
+            l2_values=l2_values, n_folds=n_folds, rng=rng, mesh=mesh, device=device,
+        )
+        CVArgs = NamedTuple("CVArgs", [("l2_regularization", Any)])  # type: ignore[misc]
+        for l2 in l2_values:
+            mean_score, sd, n = raw[float(l2)]
+            label = CVArgs(l2_regularization=l2)
+            results[SCORES_KNAME][label] = mean_score
+            results[SDS_KNAME][label] = sd
+            results[NRUNS_KNAME][label] = n
+        return results
+
+    raw_grid = fused_gb_cv_grid(
+        coords, forces, coord_map, constrained, kbt=kbt, specs=specs,
+        l2_values=l2_values, n_folds=n_folds, n_constraint_frames=n_cf, rng=rng,
+        mesh=mesh, device=device,
+    )
+    # labels mirror the generic refit loop: one namedtuple field per grid
+    # key in cv_arg_dict order (process_cvargs), holding the grid's own
+    # values (featurizer objects, not specs)
+    names = list(cv_arg_dict.keys())
+    CVArgs = NamedTuple("CVArgs", [(n, Any) for n in names])  # type: ignore[misc]
+    for fi in range(len(grid_feats)) if grid_feats else [0]:
+        for l2 in l2_values:
+            mean_score, sd, n = raw_grid[(fi, float(l2))]
+            fields = {}
+            if "featurizer" in keys:
+                fields["featurizer"] = grid_feats[fi]
+            if "l2_regularization" in keys:
+                fields["l2_regularization"] = l2
+            label = CVArgs(**fields)
+            results[SCORES_KNAME][label] = mean_score
+            results[SDS_KNAME][label] = sd
+            results[NRUNS_KNAME][label] = n
     return results
 
 

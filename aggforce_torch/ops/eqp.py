@@ -19,7 +19,10 @@ reference's iterative OSQP loop. This module provides:
     escalation target of every fit.
 
 The linear algebra goes to cuSOLVER/cuBLAS through ``torch.linalg``
-(``cholesky_ex``, ``cholesky_inverse``, ``cholesky_solve``). The JAX
+(``cholesky_ex``, ``cholesky_inverse``, ``cholesky_solve``). Each solver
+entry point runs inside ``utils.device.full_fp32()``: its float32 products
+stay full float32 whatever TF32 setting the process has chosen, as the JAX
+twin's ``precision="highest"``. The JAX
 package's ``ops/blocked_chol.py`` has no counterpart: it exists only to stop
 XLA from unrolling the factorizations on the TPU.
 """
@@ -28,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils.device import full_fp32
 
 # Refinement sweeps stop once the equilibrated constraint violation falls
 # below this (comfortably below the 1e-4 escalation tolerance, at the f32
@@ -52,7 +57,7 @@ def _factor_bad(chol: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     return (info > 0) | ~torch.isfinite(chol).all(dim=(1, 2))
 
 
-def _lazy_shift_factor(M: torch.Tensor, shifts) -> torch.Tensor:
+def _lazy_shift_factor(M: torch.Tensor, shifts, host_checks: bool = True) -> torch.Tensor:
     """Factor (b, n, n) SPD matrices, escalating diagonal shifts lazily.
 
     Tries ``shifts[0]`` for the whole batch; only when some problem's
@@ -60,7 +65,9 @@ def _lazy_shift_factor(M: torch.Tensor, shifts) -> torch.Tensor:
     exactly the failing problems (one host sync per level tried). Problems
     that fail every level get a NaN factor, as the JAX twin's non-finite
     Cholesky, so the escalation downstream sees them. ``shifts`` entries
-    are (b,)- or scalar-shaped shift magnitudes.
+    are (b,)- or scalar-shaped shift magnitudes. ``host_checks=False``
+    computes every level and selects per problem on the device, with no
+    host sync: the same factors, for the price of the unused levels.
     """
     b, n = M.shape[0], M.shape[-1]
     eye = torch.eye(n, dtype=M.dtype, device=M.device)
@@ -72,12 +79,12 @@ def _lazy_shift_factor(M: torch.Tensor, shifts) -> torch.Tensor:
     chol, info = torch.linalg.cholesky_ex(shifted(shifts[0]))
     bad = _factor_bad(chol, info)
     for level in shifts[1:]:
-        if not bool(bad.any()):
+        if host_checks and not bool(bad.any()):
             break
         repl, info = torch.linalg.cholesky_ex(shifted(level))
         chol = torch.where(bad[:, None, None], repl, chol)
         bad = bad & _factor_bad(repl, info)
-    if bool(bad.any()):
+    if not host_checks or bool(bad.any()):
         chol = torch.where(bad[:, None, None], torch.nan, chol)
     return chol
 
@@ -90,6 +97,7 @@ def _schur_tail(
     delta_fallback: float,
     iters: int,
     refine_tol: float,
+    host_checks: bool = True,
 ):
     """Range-space solve + early-exit refinement.
 
@@ -99,7 +107,9 @@ def _schur_tail(
     orthogonality systems), x = Z lambda, then refinement sweeps on the
     constraint residual until every problem is below ``refine_tol``. S is
     applied through its explicit inverse, computed once, as in the JAX
-    twin. Returns (x, per-problem max |An x - Bn|).
+    twin. Returns (x, per-problem max |An x - Bn|). ``host_checks=False``
+    runs all ``iters`` sweeps without asking the host whether every problem
+    is done; a done problem takes no update, so the result is the same.
     """
     m = An.shape[1]
     S = torch.matmul(An, Z)
@@ -109,7 +119,7 @@ def _schur_tail(
     S = 0.5 * (S + S.transpose(1, 2))
     s_scale = torch.diagonal(S, dim1=1, dim2=2).sum(-1) / m + 1e-30  # (b,)
     chol_s = _lazy_shift_factor(
-        S, [s_scale * delta, s_scale * delta_fallback, s_scale * 3e-2]
+        S, [s_scale * delta, s_scale * delta_fallback, s_scale * 3e-2], host_checks
     )
     sinv = torch.cholesky_inverse(chol_s)  # (b, m, m)
 
@@ -127,7 +137,7 @@ def _schur_tail(
 
     for _ in range(max(0, iters)):
         done = done_mask(resid)
-        if bool(done.all()):
+        if host_checks and bool(done.all()):
             break
         # per-problem masking: a converged (or non-finite) problem receives
         # no further updates while its batch neighbors keep refining, so a
@@ -159,14 +169,14 @@ def _equilibrate(P, A, B):
     return _normalize_p(P), A / row_norm, B / row_norm
 
 
-def _site_factor_chol(P: torch.Tensor, delta, delta_fallback) -> torch.Tensor:
+def _site_factor_chol(P: torch.Tensor, delta, delta_fallback, host_checks=True) -> torch.Tensor:
     """Equilibrate + lazily-shifted Cholesky per site (no inverse)."""
-    return _lazy_shift_factor(_normalize_p(P), [delta, delta_fallback])
+    return _lazy_shift_factor(_normalize_p(P), [delta, delta_fallback], host_checks)
 
 
-def _site_factor_inv(P: torch.Tensor, delta, delta_fallback) -> torch.Tensor:
+def _site_factor_inv(P: torch.Tensor, delta, delta_fallback, host_checks=True) -> torch.Tensor:
     """Equilibrate + lazily-shifted Cholesky + explicit inverse per site."""
-    return torch.cholesky_inverse(_site_factor_chol(P, delta, delta_fallback))
+    return torch.cholesky_inverse(_site_factor_chol(P, delta, delta_fallback, host_checks))
 
 
 def _shared_schur_stage(
@@ -177,6 +187,7 @@ def _shared_schur_stage(
     delta_fallback: float,
     iters: int,
     op_is_factor: bool = False,
+    host_checks: bool = True,
 ):
     """Per-fit stage of the shared-factor solve: equilibrate, Z, Schur tail.
 
@@ -192,10 +203,13 @@ def _shared_schur_stage(
         Z = torch.cholesky_solve(An.transpose(1, 2), op_b)
     else:
         Z = torch.matmul(op_b, An.transpose(1, 2))
-    x, resid = _schur_tail(Z, An, Bn, delta, delta_fallback, iters, _REFINE_TOL)
+    x, resid = _schur_tail(
+        Z, An, Bn, delta, delta_fallback, iters, _REFINE_TOL, host_checks
+    )
     return x.reshape(f, s, n, -1), resid.reshape(f, s)
 
 
+@full_fp32()
 def batched_eqp_solve_shared(
     P: torch.Tensor,
     A: torch.Tensor,
@@ -204,6 +218,7 @@ def batched_eqp_solve_shared(
     delta_fallback: float = 3e-4,
     iters: int = 10,
     return_resid: bool = False,
+    host_checks: bool = True,
 ):
     r"""Many equality-QP fits sharing per-site cost matrices P.
 
@@ -216,22 +231,29 @@ def batched_eqp_solve_shared(
     escalation.
 
     With ``return_resid=True`` also returns the (f, s) residual matrix.
+    ``host_checks=False`` enqueues the whole solve without a host sync
+    (every shift level computed, every refinement sweep run, each problem
+    selecting its own on the device), with the same results.
     """
     f, m, n = A.shape[0], A.shape[2], A.shape[3]
     if n > _DIRECT_Z_N_THRESHOLD and f * m <= 2 * n:
         # solve-based Z: factor once per site, skip the explicit inverse
-        chol = _site_factor_chol(P, delta, delta_fallback)
+        chol = _site_factor_chol(P, delta, delta_fallback, host_checks)
         x, resid = _shared_schur_stage(
-            chol, A, B, delta, delta_fallback, iters, op_is_factor=True
+            chol, A, B, delta, delta_fallback, iters, op_is_factor=True,
+            host_checks=host_checks,
         )
     else:
-        minv = _site_factor_inv(P, delta, delta_fallback)
-        x, resid = _shared_schur_stage(minv, A, B, delta, delta_fallback, iters)
+        minv = _site_factor_inv(P, delta, delta_fallback, host_checks)
+        x, resid = _shared_schur_stage(
+            minv, A, B, delta, delta_fallback, iters, host_checks=host_checks
+        )
     if return_resid:
         return x, resid
     return x
 
 
+@full_fp32()
 def batched_eqp_solve_auglag(
     P: torch.Tensor,
     A: torch.Tensor,
@@ -241,6 +263,7 @@ def batched_eqp_solve_auglag(
     delta_fallback: float = 3e-4,
     iters: int = 10,
     return_resid: bool = False,
+    host_checks: bool = True,
 ):
     r"""Batched direct range-space equality-QP solve (Cholesky only).
 
@@ -255,6 +278,8 @@ def batched_eqp_solve_auglag(
     With ``return_resid=True`` also returns the (s,) per-problem max
     equilibrated constraint violation ``max |An x - Bn|``, the diagnostic
     callers use to escalate unconverged solves to the float64 oracle.
+    ``host_checks=False`` enqueues the solve without a host sync, with the
+    same results (see :func:`batched_eqp_solve_shared`).
     """
     Pn, An, Bn = _equilibrate(P, A, B)
     AnT = An.transpose(1, 2)
@@ -262,9 +287,11 @@ def batched_eqp_solve_auglag(
     # directions even when P is (near-)singular there; the minimizer of
     # x^T P x s.t. Ax = b is unchanged by adding rho|Ax|^2
     M = Pn + rho * torch.matmul(AnT, An)
-    chol_m = _lazy_shift_factor(M, [delta, delta_fallback])
+    chol_m = _lazy_shift_factor(M, [delta, delta_fallback], host_checks)
     Z = torch.cholesky_solve(AnT, chol_m)  # (s, n, m)
-    x, resid = _schur_tail(Z, An, Bn, delta, delta_fallback, iters, _REFINE_TOL)
+    x, resid = _schur_tail(
+        Z, An, Bn, delta, delta_fallback, iters, _REFINE_TOL, host_checks
+    )
     if return_resid:
         return x, resid
     return x
@@ -294,6 +321,7 @@ def eqp_solve_auglag(
     return out[0]
 
 
+@full_fp32()
 def batched_eqp_solve(
     P: torch.Tensor,
     A: torch.Tensor,

@@ -32,6 +32,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.device import full_fp32
+
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
     ctypes.c_void_p
 ] * 2
@@ -142,6 +144,7 @@ def stage_times(tiled: bool, *args) -> Tuple[float, float]:
     return ms[0], ms[1]
 
 
+@full_fp32()
 def pack_operands(
     coords: torch.Tensor,  # (T, N, 3)
     forces: torch.Tensor,  # (T, N, 3)
@@ -159,7 +162,9 @@ def pack_operands(
     Returns (gpos, cg, fg_masked, centers_flat, kbt_counts_flat) in
     component-major layout — (3, T, G_pad) / (S, 3, T) — with the group axis
     zero-padded to a multiple of 16 (padded columns vanish because both fg
-    and counts are zero there).
+    and counts are zero there). Its einsums run at full float32 precision
+    whatever the process's TF32 setting, as the JAX twin's
+    ``precision="highest"``.
     """
     g = group_mean.shape[0]
     g_pad = max(16, -(-g // 16) * 16)

@@ -1,9 +1,10 @@
 """Torch implementations of the core trajectory-array kernels.
 
 Device twins of :mod:`aggforce_torch.ops.core` and counterparts of the JAX
-package's ``ops/jaxcore.py``. Float32 products run in full float32 on the
-card: TF32 stays off (``torch.backends.cuda.matmul.allow_tf32`` is False by
-default), which is what the JAX code's ``precision="highest"`` asks for.
+package's ``ops/jaxcore.py``. :func:`trjdot`, which every ``TLinearMap``
+applies through, runs inside ``utils.device.full_fp32()``: its float32
+products stay full float32 whatever TF32 setting the process has chosen,
+which is what the JAX code's ``precision="highest"`` asks for.
 
 Behavior parity targets: reference jaxutil.py:11-59 (trjdot),
 jaxutil.py:105-183 (distances with ``square`` option).
@@ -13,7 +14,10 @@ from typing import Callable, Union
 
 import torch
 
+from ..utils.device import full_fp32
 
+
+@full_fp32()
 def trjdot(points: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
     """Map (n_frames, n_sites, n_dim) points with a (n_out, n_sites) matrix.
 

@@ -22,5 +22,7 @@ from .fusedfeat import (
     GBFeatSpec,
     FusedGBMap,
     fused_gb_linear_map,
+    fused_gb_linear_map_batch,
     fused_gb_linear_map_blocked,
 )
+from .cv import fused_gb_cv, fused_gb_cv_grid, linear_map_cv

@@ -14,6 +14,12 @@ per-site Gram (the hand-written CUDA kernel on the card, its plain twin on
 the CPU), assembles the sampled orthogonality constraints and solves every
 site's equality QP with the shared-factor solver, escalating to the float64
 host oracle when the float32 solve is not converged.
+:func:`fused_gb_linear_map_batch` fits one map per constraint-sample seed
+and shares one Gram among the seeds of a window.
+
+Every product here runs at full float32 precision whatever TF32 setting the
+process has chosen (``utils.device.full_fp32()`` scopes the entry points and
+the helpers that take products), as the JAX code's ``precision="highest"``.
 
 Map application is fused the same way: each frame chunk computes the
 geometry once and emits the mapped forces directly (FusedGBMap.__call__),
@@ -22,6 +28,7 @@ with the protocol-compatible scale/trans closures kept for CLAMap API parity.
 
 import os
 import time
+import warnings
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Optional, Tuple, Union
@@ -42,7 +49,7 @@ from ..ops.gram import (
     unpack_gram,
 )
 from ..trajectory import Trajectory
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, full_fp32, resolve_device
 from .featlinearmap import id_feat
 
 
@@ -107,7 +114,9 @@ def _constraint_rows(
     centers: torch.Tensor,
     spec: GBFeatSpec,
 ) -> torch.Tensor:
-    """Sampled orthogonality rows per site: (S, tc*S, K_exp)."""
+    """Sampled orthogonality rows per site: (S, tc*S, K_exp). Its products
+    run in the full-fp32 scope of its caller,
+    :func:`_assemble_constraint_system`."""
     gauss, _ = _group_feature_blocks(
         coords, cg_points, group_mean, counts, centers, spec
     )
@@ -123,6 +132,7 @@ def _constraint_rows(
     return rows.transpose(0, 1).reshape(s_dim, tc * c_dim, -1)
 
 
+@full_fp32()
 def _assemble_constraint_system(
     constr_coords: torch.Tensor,
     cmap_mat: torch.Tensor,
@@ -161,6 +171,80 @@ def _assemble_constraint_system(
     return a_rows, b
 
 
+def _constraint_system(
+    coords: torch.Tensor,  # (T, N, 3)
+    frame_idx: torch.Tensor,  # (F,) one fit's constraint frames, or (B, F)
+    cmap_mat, group_mean, onehot, counts, centers,
+    spec: GBFeatSpec,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The constraint system of the fit whose constraint frames are
+    ``frame_idx``: (S, m, K_exp) rows and (S, m) targets, m = F * S. A
+    (B, F) batch of fits gives (B, S, m, K_exp) and (B, S, m): its frames
+    are assembled together, and each fit's rows are those of its own frames
+    (the JAX package's ``_constraint_system_e2e`` and the vmapped assembly
+    of ``_fit_coefs_batch_e2e``)."""
+    rows, b = _assemble_constraint_system(
+        coords[frame_idx.reshape(-1)], cmap_mat, group_mean, onehot, counts,
+        centers, spec,
+    )
+    if frame_idx.ndim == 1:
+        return rows, b
+    # the row axis is (frame, cg row), frame-major, so fit i owns rows
+    # [i * m, (i + 1) * m)
+    n_fit, s_dim = frame_idx.shape[0], rows.shape[0]
+    return (
+        rows.reshape(s_dim, n_fit, -1, rows.shape[-1]).transpose(0, 1),
+        b.reshape(s_dim, n_fit, -1).transpose(0, 1),
+    )
+
+
+def _site_gram(
+    coords: torch.Tensor,  # (T, N, 3)
+    forces: torch.Tensor,
+    mask: torch.Tensor,  # (T,)
+    rows_map: torch.Tensor,  # (Sb, N) the sites whose Grams are taken
+    group_mean: torch.Tensor,
+    onehot: torch.Tensor,
+    counts: torch.Tensor,
+    centers: torch.Tensor,
+    kbt: float,
+    spec: GBFeatSpec,
+    gram_fn: Callable,
+    tiled: bool = False,
+) -> torch.Tensor:
+    """Per-site featurized Gram of the masked frames, (Sb, K_exp, K_exp), in
+    the canonical layout of the constraint rows and without the l2 term.
+
+    The one code path from frames to Gram (pack the group operands, run the
+    Gram ``gram_fn`` of :func:`_gram_function`, unpack it, drop the id block
+    when ``spec`` has none) for the fits, the batch fits and the
+    cross validation's fold Grams. The kernels mask the ragged frame edge
+    and the masked frames themselves, so nothing is padded. ``tiled`` marks
+    a Gram of the tiled contract, which takes the raw per-basis centers and
+    per-group weights instead of the flat per-column ones.
+    """
+    gpos, cgp, fgp, centers_flat, kcounts = pack_operands(
+        coords, forces, mask, rows_map, group_mean, onehot, counts, kbt,
+        spec.n_basis, centers,
+    )
+    params = (centers, kcounts[: gpos.shape[2]]) if tiled else (centers_flat, kcounts)
+    gram_pad = gram_fn(
+        gpos, cgp, fgp, mask, *params, spec.n_basis, spec.width, spec.clip
+    )
+    g = group_mean.shape[0]
+    gram = unpack_gram(gram_pad, g, spec.n_basis)
+    del gram_pad  # a sweep block's padded square is 2 GB; free it before the l2 copy
+    return gram if spec.include_id else gram[:, g:, g:]
+
+
+def _regularized(gram: torch.Tensor, l2_regularization: float) -> torch.Tensor:
+    """``gram`` plus the l2 term on its diagonal (a new tensor)."""
+    k_exp = gram.shape[-1]
+    return gram + l2_regularization * torch.eye(
+        k_exp, dtype=gram.dtype, device=gram.device
+    )
+
+
 def _fit_parts(
     coords: torch.Tensor,  # (T, N, 3)
     forces: torch.Tensor,
@@ -181,32 +265,18 @@ def _fit_parts(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-site QP assembly: (gram, constraint rows, targets).
 
-    The counterpart of the JAX package's ``_pallas_fit_parts``: pack the
-    group operands, run the fused Gram ``gram_fn`` (see
-    :func:`_gram_function`), permute it into the canonical layout and add
-    the l2 term. The kernels mask the ragged frame edge themselves, so
-    nothing is padded. ``tiled`` marks a Gram of the tiled contract, which
-    takes the raw per-basis centers and per-group weights instead of the
-    flat per-column ones. ``cmap_rows``/``site_sel`` fit one site block
-    (see :func:`_assemble_constraint_system`).
+    The counterpart of the JAX package's ``_pallas_fit_parts``: the Gram of
+    :func:`_site_gram` (``gram_fn``, ``tiled``) plus the l2 term, and the
+    constraint system. ``cmap_rows``/``site_sel`` fit one site block (see
+    :func:`_assemble_constraint_system`).
     """
     rows_map = cmap_mat if cmap_rows is None else cmap_rows
-    gpos, cgp, fgp, centers_flat, kcounts = pack_operands(
-        coords, forces, mask, rows_map, group_mean, onehot, counts, kbt,
-        spec.n_basis, centers,
-    )
-    params = (centers, kcounts[: gpos.shape[2]]) if tiled else (centers_flat, kcounts)
-    gram_pad = gram_fn(
-        gpos, cgp, fgp, mask, *params, spec.n_basis, spec.width, spec.clip
-    )
-    g = group_mean.shape[0]
-    gram = unpack_gram(gram_pad, g, spec.n_basis)
-    del gram_pad  # a sweep block's padded square is 2 GB; free it before the l2 copy
-    if not spec.include_id:
-        gram = gram[:, g:, g:]
-    k_exp = gram.shape[-1]
-    gram = gram + l2_regularization * torch.eye(
-        k_exp, dtype=gram.dtype, device=gram.device
+    gram = _regularized(
+        _site_gram(
+            coords, forces, mask, rows_map, group_mean, onehot, counts, centers,
+            kbt, spec, gram_fn, tiled,
+        ),
+        l2_regularization,
     )
     a_rows, b = _assemble_constraint_system(
         constr_coords, cmap_mat, group_mean, onehot, counts, centers, spec,
@@ -251,6 +321,7 @@ def _fit_coefs(
     return coefs[0, ..., 0], resids[0], gram, a_rows, b
 
 
+@full_fp32()
 def _fused_apply(
     points: torch.Tensor,  # (t, N, 3) forces to map
     copoints: torch.Tensor,  # (t, N, 3) coordinates (copoints)
@@ -282,6 +353,7 @@ def _group_weights(gauss, coefs, g: int, spec: GBFeatSpec) -> torch.Tensor:
     return w_group if coef_id is None else w_group + coef_id[None]
 
 
+@full_fp32()
 def _fused_scale(
     copoints, coefs, cmap_mat, group_mean, onehot, counts, centers,
     spec: GBFeatSpec,
@@ -298,6 +370,7 @@ def _fused_scale(
     return torch.einsum("tsg,jg->tsj", w_group, onehot)
 
 
+@full_fp32()
 def _fused_trans(
     copoints, coefs, cmap_mat, group_mean, onehot, counts, centers, kbt,
     spec: GBFeatSpec,
@@ -332,25 +405,24 @@ class FusedGBMap(CLAMap):
         spec: GBFeatSpec,
         tags=None,
         device: DeviceLike = None,
+        device_consts: Optional[Tuple[torch.Tensor, ...]] = None,
     ) -> None:
         """Store fit artifacts on ``device`` (group structure from the one-hot).
 
         ``coefs`` may already be a tensor on the device (the fit's output),
-        which skips its re-upload.
+        which skips its re-upload. ``device_consts``, the
+        :func:`map_constants` of the same arrays on ``device``, skips the
+        upload of the map's constants (the batch fits share one set).
         """
         dev = resolve_device(device, coefs)
         self.device = dev
-        f32 = dict(dtype=torch.float32, device=dev)
-        onehot = np.asarray(onehot, dtype=np.float32)
-        counts = onehot.sum(axis=0)
-        self._coefs = torch.as_tensor(coefs, **f32)
-        self._cmap_mat = torch.as_tensor(np.asarray(cmap_mat), **f32)
-        self._onehot = torch.as_tensor(onehot, **f32)
-        self._counts = torch.as_tensor(counts, **f32)
-        self._group_mean = torch.as_tensor(
-            (onehot / np.maximum(counts, 1.0)).T, **f32
-        )
-        self._centers = torch.as_tensor(np.asarray(centers), **f32)
+        self._coefs = torch.as_tensor(coefs, dtype=torch.float32, device=dev)
+        if device_consts is None:
+            device_consts = map_constants(cmap_mat, onehot, centers, dev)
+        (
+            self._cmap_mat, self._onehot, self._counts, self._group_mean,
+            self._centers,
+        ) = device_consts
         self._kbt = float(kbt)
         self._spec = spec
 
@@ -406,6 +478,21 @@ class FusedGBMap(CLAMap):
         if device_in:
             return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
         return np.concatenate(outs, axis=0)
+
+
+def map_constants(cmap_mat, onehot, centers, device: torch.device):
+    """A :class:`FusedGBMap`'s constants on ``device``: (cmap, onehot,
+    counts, group_mean, centers), float32, the group structure taken from
+    the one-hot."""
+    onehot = np.asarray(onehot, dtype=np.float32)
+    counts = onehot.sum(axis=0)
+    return tuple(
+        torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+        for x in (
+            cmap_mat, onehot, counts, (onehot / np.maximum(counts, 1.0)).T,
+            centers,
+        )
+    )
 
 
 def recognize_canonical_featurizer(featurizer) -> Optional[GBFeatSpec]:
@@ -579,6 +666,44 @@ def _package_fused_map(
     )
 
 
+def _prepare_fused_setup(
+    traj: Trajectory,
+    coord_map: LinearMap,
+    spec: GBFeatSpec,
+    constraints: Optional[Constraints],
+    device: DeviceLike,
+) -> dict:
+    """Shared fit setup, the JAX package's ``_prepare_fused_setup`` without
+    its padding plan and Pallas policy (the kernels mask the ragged frame
+    edge): the fit's device, the group factorization (``onehot``,
+    ``group_mean``, ``counts``, ``centers``), the frame count ``t``, the
+    float32 trajectory on the device (``trajectory``: coords, forces) and
+    the fit constants uploaded once (``consts``: cmap, group_mean, onehot,
+    counts, centers)."""
+    dev = resolve_device(device, traj.coords, traj.forces)
+    geom = group_factorization(
+        coord_map, spec, constraints if constraints is not None else set()
+    )
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    return dict(
+        geom,
+        device=dev,
+        t=len(traj),
+        trajectory=(f32(traj.coords), f32(traj.forces)),
+        consts=tuple(
+            f32(x)
+            for x in (
+                coord_map.standard_matrix, geom["group_mean"], geom["onehot"],
+                geom["counts"], geom["centers"],
+            )
+        ),
+    )
+
+
+@full_fp32()
 def fused_gb_linear_map(
     traj: Trajectory,
     coord_map: LinearMap,
@@ -619,45 +744,27 @@ def fused_gb_linear_map(
         raise NotImplementedError(
             "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
         )
-    if constraints is None:
-        constraints = set()
-    dev = resolve_device(device, traj.coords, traj.forces)
+    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device)
+    dev = setup["device"]
     gram_fn = _gram_function(use_kernel, dev, chunk_size)
-    geom = group_factorization(coord_map, spec, constraints)
-    onehot, centers = geom["onehot"], geom["centers"]
-
-    t = len(traj)
     rng = constraint_rng if constraint_rng is not None else np.random.default_rng()
     # short trajectories: cannot sample more distinct constraint frames than
     # exist, so clamp (every frame then anchors the orthogonality rows)
-    n_constraint_frames = min(n_constraint_frames, t)
-    frame_idx = rng.choice(t, size=n_constraint_frames, replace=False)
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
+    n_constraint_frames = min(n_constraint_frames, setup["t"])
+    frame_idx = rng.choice(setup["t"], size=n_constraint_frames, replace=False)
+    coords, forces = setup["trajectory"]
     coefs, resids, gram, a_rows, b = _fit_coefs(
-        f32(traj.coords),
-        f32(traj.forces),
-        torch.as_tensor(frame_idx, device=dev),
-        f32(coord_map.standard_matrix),
-        f32(geom["group_mean"]),
-        f32(onehot),
-        f32(geom["counts"]),
-        f32(centers),
-        float(kbt),
-        float(l2_regularization),
-        spec,
-        solver_delta,
-        solver_iters,
+        coords, forces, torch.as_tensor(frame_idx, device=dev), *setup["consts"],
+        float(kbt), float(l2_regularization), spec, solver_delta, solver_iters,
         gram_fn,
     )
     return _package_fused_map(
-        coefs, torch.amax(resids), gram, a_rows, b, coord_map, onehot, centers,
-        kbt, spec, resid_tol, dev,
+        coefs, torch.amax(resids), gram, a_rows, b, coord_map, setup["onehot"],
+        setup["centers"], kbt, spec, resid_tol, dev,
     )
 
 
+@full_fp32()
 def fused_gb_linear_map_blocked(
     traj: Trajectory,
     coord_map: LinearMap,
@@ -710,17 +817,13 @@ def fused_gb_linear_map_blocked(
         raise NotImplementedError(
             "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
         )
-    if constraints is None:
-        constraints = set()
-    dev = resolve_device(device, traj.coords, traj.forces)
+    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device)
+    dev = setup["device"]
     gram_fn = _gram_function(use_kernel, dev, chunk_size, tiled=True)
-    geom = group_factorization(coord_map, spec, constraints)
-    onehot, centers = geom["onehot"], geom["centers"]
-
-    t = len(traj)
+    onehot, centers = setup["onehot"], setup["centers"]
     rng = constraint_rng if constraint_rng is not None else np.random.default_rng()
-    n_constraint_frames = min(n_constraint_frames, t)
-    frame_idx = rng.choice(t, size=n_constraint_frames, replace=False)
+    n_constraint_frames = min(n_constraint_frames, setup["t"])
+    frame_idx = rng.choice(setup["t"], size=n_constraint_frames, replace=False)
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -728,12 +831,11 @@ def fused_gb_linear_map_blocked(
     cmap_np = np.asarray(coord_map.standard_matrix, dtype=np.float32)
     s_all = cmap_np.shape[0]
     sb = max(1, min(site_block, s_all))
-    coords, forces = f32(traj.coords), f32(traj.forces)
+    coords, forces = setup["trajectory"]
     frame_idx_dev = torch.as_tensor(frame_idx, device=dev)
     common = (
-        f32(cmap_np), f32(geom["group_mean"]), f32(onehot), f32(geom["counts"]),
-        f32(centers), float(kbt), float(l2_regularization), spec, solver_delta,
-        solver_iters, gram_fn,
+        *setup["consts"], float(kbt), float(l2_regularization), spec,
+        solver_delta, solver_iters, gram_fn,
     )
     pipelined = os.environ.get("AGGFORCE_SWEEP_PIPELINE", "1") == "1"
     coefs_blocks = []
@@ -789,3 +891,315 @@ def fused_gb_linear_map_blocked(
         },
         dev,
     )
+
+
+def _fit_coefs_batch(
+    coords: torch.Tensor,  # (T, N, 3) float32 on the fit's device
+    forces: torch.Tensor,
+    frame_idx_batch: torch.Tensor,  # (B, F) constraint-frame indices per fit
+    cmap_mat, group_mean, onehot, counts, centers, kbt, l2_regularization,
+    spec: GBFeatSpec, solver_delta: float, solver_iters: int,
+    gram_fn: Callable,
+):
+    """B fits over the same trajectory with different constraint samples,
+    sharing one Gram (the JAX package's ``_fit_coefs_batch_e2e``).
+
+    The Gram does not depend on which frames anchor the orthogonality
+    constraints, so it is taken once (:func:`_site_gram`); the B constraint
+    systems are assembled together, and one shared-factor solve factors each
+    site once for every fit. The solve runs without host checks, so the
+    whole window is enqueued without a host sync. Returns
+    (:func:`_batch_fit_outputs`, gram), all on the device.
+    """
+    mask = torch.ones(coords.shape[0], dtype=coords.dtype, device=coords.device)
+    gram = _regularized(
+        _site_gram(
+            coords, forces, mask, cmap_mat, group_mean, onehot, counts, centers,
+            kbt, spec, gram_fn,
+        ),
+        l2_regularization,
+    )
+    rows_b, b_b = _constraint_system(
+        coords, frame_idx_batch, cmap_mat, group_mean, onehot, counts, centers,
+        spec,
+    )
+    coefs_b, resid_fs = batched_eqp_solve_shared(
+        gram, rows_b, b_b[..., None], delta=solver_delta, iters=solver_iters,
+        return_resid=True, host_checks=False,
+    )
+    return _batch_fit_outputs(coefs_b[..., 0], resid_fs), gram
+
+
+def _batch_fit_outputs(coefs_b: torch.Tensor, resid_fs: torch.Tensor):
+    """(coefficients (B, S, K_exp), each fit's largest site residual (B,),
+    each fit's finiteness (B,)), still on the device. The finiteness is
+    checked on the device, so the host fetches two (B,) vectors per window
+    instead of the coefficients; the (B, S, m, K_exp) constraint systems are
+    not kept (an escalating fit recomputes its own,
+    :func:`_constraint_system`)."""
+    finite_b = torch.isfinite(coefs_b).all(dim=2).all(dim=1)
+    return coefs_b, torch.amax(resid_fs, dim=1), finite_b
+
+
+def _fetch_async(*tensors: torch.Tensor):
+    """Start copying small device tensors to the host; returns (host
+    tensors, wait), where ``wait()`` blocks until the copies (and the work
+    enqueued before them) are done, and nothing enqueued after. CPU tensors
+    are copied at once."""
+    if tensors[0].device.type != "cuda":
+        return [t.clone() for t in tensors], lambda: None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done.synchronize
+
+
+class _LazyCoefTags(dict):
+    """Tags dict whose ``coef_list`` materializes from the still-on-device
+    coefficients on first read access.
+
+    Most consumers of a batch of fits (bootstrap pipelines that apply the
+    maps on the device) never read ``coef_list``, so the (S, K_exp) fetch of
+    each fit is deferred until something asks for the host arrays.
+    Read accessors (getitem/get/contains, iteration/len, keys/items/values,
+    ==, copy, pop/setdefault, repr) materialize first; after that this is a
+    plain dict holding numpy rows, as the eager ``coef_list`` tag of a
+    single fit. Because ``keys``/``items``/``__iter__``/``__len__`` are all
+    overridden, ``dict(tags)``, ``{**tags}`` and ``json.dumps(tags)``
+    materialize too.
+    """
+
+    def __init__(self, coefs_dev: torch.Tensor, base: dict) -> None:
+        super().__init__(base)
+        self._coefs_dev = coefs_dev
+
+    def _materialize(self) -> None:
+        dev = self.__dict__.get("_coefs_dev")
+        if dev is not None:
+            self._coefs_dev = None
+            super().__setitem__("coef_list", list(dev.cpu().numpy()))
+
+    def __getitem__(self, key):
+        if key == "coef_list":
+            self._materialize()
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        if key == "coef_list":
+            self._materialize()
+        return super().get(key, default)
+
+    def __contains__(self, key) -> bool:
+        if key == "coef_list":
+            self._materialize()
+        return super().__contains__(key)
+
+    def __setitem__(self, key, value) -> None:
+        if key == "coef_list":
+            # a user-assigned value wins: cancel the pending fetch
+            self._coefs_dev = None
+        super().__setitem__(key, value)
+
+    def pop(self, key, *default):
+        if key == "coef_list":
+            self._materialize()
+        return super().pop(key, *default)
+
+    def popitem(self):
+        self._materialize()
+        return super().popitem()
+
+    def setdefault(self, key, default=None):
+        if key == "coef_list":
+            self._materialize()
+        return super().setdefault(key, default)
+
+    def __iter__(self):
+        self._materialize()
+        return super().__iter__()
+
+    def __len__(self) -> int:
+        self._materialize()
+        return super().__len__()
+
+    def keys(self):
+        self._materialize()
+        return super().keys()
+
+    def items(self):
+        self._materialize()
+        return super().items()
+
+    def values(self):
+        self._materialize()
+        return super().values()
+
+    def copy(self):
+        self._materialize()
+        return dict(super().items())
+
+    def __repr__(self) -> str:
+        self._materialize()
+        return super().__repr__()
+
+    def __eq__(self, other) -> bool:
+        self._materialize()
+        return super().__eq__(other)
+
+    def __ne__(self, other):
+        # dict's C-level richcompare would otherwise bypass __eq__
+        result = self.__eq__(other)
+        if result is NotImplemented:
+            return result
+        return not result
+
+    __hash__ = None  # mutable mapping, same as dict
+
+
+def _window_indices(seeds, t: int, n_cf: int, window: int) -> np.ndarray:
+    """(n_windows, B, n_cf) constraint-frame indices: seed s draws
+    ``np.random.default_rng(s).choice(t, n_cf, replace=False)``, the frames
+    of a single fit with ``constraint_rng=np.random.default_rng(s)``. A tail
+    window is padded to ``window`` fits by repeating its last seed's draw
+    (padded fits are discarded); a sole window shorter than ``window`` is
+    not padded."""
+    idx = [np.random.default_rng(seed).choice(t, size=n_cf, replace=False) for seed in seeds]
+    if len(seeds) < window:
+        return np.stack(idx)[None]
+    n_tail = len(seeds) % window
+    if n_tail:
+        if window - n_tail > n_tail:
+            warnings.warn(
+                f"fused_gb_linear_map_batch: tail of {n_tail} seeds padded to "
+                f"the {window}-fit window ({window - n_tail} discarded solves; "
+                f"align len(seeds) to flush_every to avoid)",
+                stacklevel=4,  # past the batch fit and its full_fp32 scope
+            )
+        idx += [idx[-1]] * (window - n_tail)
+    return np.stack(idx).reshape(-1, window, n_cf)
+
+
+@full_fp32()
+def fused_gb_linear_map_batch(
+    traj: Trajectory,
+    coord_map: LinearMap,
+    kbt: float,
+    spec: GBFeatSpec,
+    seeds,
+    constraints: Optional[Constraints] = None,
+    n_constraint_frames: int = 20,
+    l2_regularization: float = 1e1,
+    chunk_size: int = 2048,
+    solver_delta: float = 1e-6,
+    solver_iters: int = 40,
+    resid_tol: float = 1e-4,
+    use_kernel: Union[bool, str] = "auto",
+    flush_every: int = 16,
+    mesh=None,
+    device: DeviceLike = None,
+):
+    """Fit one map per constraint-sample seed, one Gram per window of seeds.
+
+    Every fit runs over the same trajectory, so the Gram is the same for
+    every seed: each window of ``flush_every`` seeds takes it once and
+    solves the window's fits in one shared-factor solve
+    (:func:`_fit_coefs_batch`). Fit i of the result equals the single fit
+    ``fused_gb_linear_map(..., constraint_rng=np.random.default_rng(seeds[i]))``.
+    Uses: bootstrap uncertainty over the sampled orthogonality frames, or
+    many maps fast. Returns a list of CLAFTMaps, one per seed, each
+    convergence-checked as :func:`fused_gb_linear_map` is: a fit whose
+    coefficients are not finite or whose residual misses ``resid_tol``
+    (NaN-aware) is escalated alone to the float64 host oracle
+    (``tags["escalated"]``). ``use_kernel`` and ``device`` are those of
+    :func:`fused_gb_linear_map`.
+
+    The whole window is enqueued without a host sync, and window w + 1 is
+    enqueued before window w is packaged, so the host's packaging overlaps
+    the device's next window. The host fetches two (B,) vectors per window
+    (each fit's residual and finiteness); the coefficients stay on the
+    device inside the maps, and ``tags["coef_list"]`` fetches them on first
+    read (``_LazyCoefTags``). A tail window is padded to ``flush_every`` fits,
+    with a warning when more than half of it is padding.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device batch fits are not ported yet (ROADMAP Queue 1 item 13)"
+        )
+    seeds = list(seeds)
+    if not seeds:
+        return []
+    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device)
+    dev = setup["device"]
+    gram_fn = _gram_function(use_kernel, dev, chunk_size)
+    onehot, centers = setup["onehot"], setup["centers"]
+    window = max(1, int(flush_every))
+    n_cf = min(n_constraint_frames, setup["t"])
+    # every window's indices in one upload, before any work is enqueued
+    idx_np = _window_indices(seeds, setup["t"], n_cf, window)
+    idx_dev = torch.as_tensor(idx_np, device=dev)
+    coords, forces = setup["trajectory"]
+    consts = setup["consts"]
+    # one set of map constants and one device coordinate map for every map
+    cmap_np = np.asarray(coord_map.standard_matrix, dtype=np.float32)
+    cmap_dev, gmean_dev, onehot_dev, counts_dev, centers_dev = consts
+    map_consts = (cmap_dev, onehot_dev, counts_dev, gmean_dev, centers_dev)
+    package_coord_map = (
+        TLinearMap.from_linearmap(coord_map, device=dev)
+        if isinstance(coord_map, LinearMap) and not isinstance(coord_map, TLinearMap)
+        else coord_map
+    )
+    maps = []
+
+    def dispatch(w: int):
+        (coefs_b, resid_b, finite_b), gram = _fit_coefs_batch(
+            coords, forces, idx_dev[w], *consts, float(kbt),
+            float(l2_regularization), spec, solver_delta, solver_iters, gram_fn,
+        )
+        n_valid = min(len(seeds) - w * window, idx_np.shape[1])
+        return (w, n_valid, coefs_b, gram) + tuple(_fetch_async(resid_b, finite_b))
+
+    def package(pending) -> None:
+        w, n_valid, coefs_b, gram, (resid_h, finite_h), wait = pending
+        wait()
+        resid_np, finite_np = resid_h.numpy(), finite_h.numpy()
+        gram_h = None  # the window's Gram on the host, fetched once if a fit escalates
+        for i in range(n_valid):
+            resid_i = float(resid_np[i])
+            if bool(finite_np[i]) and resid_i <= resid_tol:  # NaN-aware
+                force_map = FusedGBMap(
+                    coefs=coefs_b[i], cmap_mat=cmap_np, onehot=onehot,
+                    centers=centers, kbt=kbt, spec=spec,
+                    tags=_LazyCoefTags(
+                        coefs_b[i], {"solver_resid": resid_i, "escalated": False}
+                    ),
+                    device=dev, device_consts=map_consts,
+                )
+                maps.append(CLAFTMap(coord_map=package_coord_map, force_map=force_map))
+                continue
+            # escalation: recompute this fit's constraint system and take
+            # the single fit's float64 packaging path
+            rows, b = _constraint_system(
+                coords, idx_dev[w, i], cmap_dev, gmean_dev, onehot_dev,
+                counts_dev, centers_dev, spec,
+            )
+            if gram_h is None:
+                gram_h = gram.cpu()
+            maps.append(
+                _package_fused_map(
+                    coefs_b[i], resid_i, gram_h, rows, b, package_coord_map,
+                    onehot, centers, kbt, spec, resid_tol, dev,
+                )
+            )
+
+    pending = None
+    for w in range(idx_np.shape[0]):
+        entry = dispatch(w)
+        if pending is not None:
+            package(pending)
+        pending = entry
+        del entry
+    if pending is not None:
+        package(pending)
+    return maps

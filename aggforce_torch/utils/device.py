@@ -18,13 +18,19 @@ DeviceLike = Union[None, str, torch.device]
 def full_fp32():
     """float32 cuBLAS products at full precision (no TF32) inside the block.
 
-    The linear fit's Gram and solves, like the JAX package's
-    ``precision="highest"``, must not round their operands to TF32, whatever
-    the process has set; the setting is restored on exit. torch refuses a
-    mix of its two TF32 switches, so the one in use is the one flipped: the
-    legacy ``float32_matmul_precision`` reads fine unless the newer
-    ``fp32_precision`` switch has been set, and then it raises.
+    The port's products, like the JAX package's ``precision="highest"``,
+    must not round their operands to TF32, whatever the process has set;
+    the setting is restored on exit. torch has two linked switches, and
+    refuses a mix of them: the one in use is the one flipped. The newer
+    ``torch.backends.cuda.matmul.fp32_precision`` is read first, so the
+    common case (full precision already) costs one attribute read; the
+    legacy ``float32_matmul_precision`` reads fine unless the newer switch
+    has been set, and then it raises.
     """
+    matmul = torch.backends.cuda.matmul
+    if getattr(matmul, "fp32_precision", None) == "ieee":
+        yield
+        return
     try:
         legacy = torch.get_float32_matmul_precision()
     except RuntimeError:
@@ -39,7 +45,6 @@ def full_fp32():
         finally:
             torch.set_float32_matmul_precision(legacy)
         return
-    matmul = torch.backends.cuda.matmul
     prev = matmul.fp32_precision
     matmul.fp32_precision = "ieee"
     try:

@@ -11,8 +11,9 @@ fails:
 1. environment: torch/CUDA versions, the card's name and power limit, TF32;
 2. build: compile every CUDA kernel of the path from ``aggforce_torch/csrc``;
 3. each kernel against its plain torch version on the card, at the main
-   path's shapes and at edge shapes, and the config-#3 Gram against a
-   float64 sum of the same rows;
+   path's shapes (kernel 1 also at the config-#4 fold shape, 2,000 frames)
+   and at edge shapes, and the config-#3 Gram against a float64 sum of the
+   same rows;
 4. the main path: ``aggforce_torch.project_forces`` with the featurized
    method on a 10,000-frame synthetic trajectory at the full width of
    config #3 (175 atoms, 30 constraint pairs, 10 cg sites, n_basis=7):
@@ -27,7 +28,23 @@ fails:
    kernel, each kernel (and its build and product stages) against its plain
    version, its library yardstick and two bounds (3xTF32 on the tensor
    cores, the route it takes, and fp32 on the CUDA cores), peak device
-   memory;
+   memory; kernel 1 also at the fold shape;
+   (a) config #4, ``fused_gb_cv`` at the shape of bench.py's run_cv (phase
+   4's fixture, 5 folds, l2 1e0 to 1e5, 20 constraint frames): five kernel-1
+   launches per CV; every cell that did not escalate within 1e-4 plus
+   cond * 2**-24 of a float64 witness solved on the card (the problem the
+   solver poses; the distance to the unridged optimum is printed); the
+   refit of (fold 0, l2 1e3) scored by force_smoothness within 2e-3 of its
+   cell, and a CV on fold Grams without the divergence term outside it;
+   times, frames/s, a profiled CV and a solve block's peak memory;
+   (b) ``project_forces_grid_cv(fast=True)``: a (featurizer x l2) grid must
+   equal ``fused_gb_cv_grid``'s table and launch kernel 1 five times per
+   featurizer; the linear grid at config #1 must lie within 1e-4 of float64
+   scores and launch no kernel;
+   (c) ``fused_gb_linear_map_batch`` at config #3, 4 windows of 64 seeds: one
+   kernel-1 launch per window, every fit finite, the first and last seed
+   of each window within 1e-4 of its float64 optimum; ms per fit and
+   pipelined frames/s; two seeds refitted singly are printed beside theirs;
 6. the sweep path: ``fused_gb_linear_map_blocked`` at the full sweep width
    (1,500 atoms, 375 constraint pairs, 66 cg sites, n_basis=7, so
    K_exp = 9,000; 20,000 frames; 6 sites per block, 11 blocks). The tiled
@@ -47,7 +64,10 @@ fails:
    mapped forces must lie within 3e-6 relative RMS of the float64 host fit
    (a fit without constraints, the planted fault, must not). The same
    holds for float64 forces, which must take the device route, and with
-   TF32 switched on for the process, which the fit must leave on;
+   TF32 switched on for the process, which the fit must leave on; with TF32
+   on, a config-#3 fit (also held to the objective gate), a ``FusedGBMap``
+   and a ``TLinearMap`` application and a CV cell must read what they read
+   with TF32 off, and the fit with its full-fp32 scopes bypassed must not;
    ``constraint_aware_uni_map`` through ``project_forces`` must map to the
    sums of each site's atoms and their partners; then detection and five
    steady-state fits are timed;
@@ -60,6 +80,7 @@ fails:
 8. one JSON line listing every kernel; the last line is the result.
 
 The fixtures are the JAX bench's standalone geometry (bench.py:290-307),
+its CV and batch shapes (bench.py:783-820, 887-927),
 its featurized sweep geometry (bench.py:415-530) and its linear sweep
 geometry (bench.py:310-412), made from fixed seeds; nothing is read from
 outside the repository.
@@ -69,6 +90,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 _T_START = time.perf_counter()
 
@@ -112,6 +134,31 @@ SWEEP_REL_RMS_LIMIT = 1e-5
 # frames per block of the sweep witness's float64 Gram: not the program's
 # block, and not a divisor of the frame count
 WITNESS_BLOCK = 3_000
+# config #4, the featurized CV at the shape of bench.py's run_cv
+# (bench.py:783-820): phase 4's fixture, 5 folds, six l2 values, 20
+# constraint frames per fold, folds and samples from one seed
+CV_L2S = [1e0, 1e1, 1e2, 1e3, 1e4, 1e5]
+CV_FOLDS = 5
+CV_SEED = 11
+# a CV cell that did not escalate against the float64 score of the problem
+# its solver poses on the same Grams, relative; the refit of one cell,
+# scored by force_smoothness of its mapped holdout forces, against the cell
+# (tests/test_cv_fast.py:118). The solver (JAX's algorithm) factors
+# P / p + DELTA * I, p the mean of P's diagonal, and refines the
+# constraints but not the ridge away: the float64 witness takes the same
+# ridge, and the distance to the unridged optimum is printed beside it. A
+# float32 solve resolves a cell to about cond * 2**-24 (the reference's own
+# contract, aggforce_tpu/qp/cv.py:25-34), so a cell's limit is CV_REL_LIMIT
+# plus that, with cond the largest over the cell's sites.
+CV_REL_LIMIT = 1e-4
+SOLVER_DELTA = 1e-6
+F32_EPS = 2.0**-24
+REFIT_REL_LIMIT = 2e-3
+# the batch fits of config #3's bench (bench.py:887-927): 4 windows of 64 seeds
+BATCH_WINDOWS, BATCH_WINDOW = 4, 64
+# a path's outputs with TF32 on for the process against TF32 off, largest
+# difference over largest entry: a TF32 product is good to ~1e-3
+TF32_REL_LIMIT = 1e-6
 
 
 def log(msg: str) -> None:
@@ -271,17 +318,30 @@ def gram_error_vs_float64(ops, n_basis):
         fail("the Gram check does not reject a Gram without the divergence term")
 
 
-def phase_kernels(torch, coords, forces, cmap, groups, spec):
+def cv_folds(np):
+    """The config-#4 CV's folds, as ``fused_gb_cv`` draws them first from
+    ``np.random.default_rng(CV_SEED)``."""
+    from aggforce_torch.qp.cv import _fold_segments
+
+    return _fold_segments(N_FRAMES, CV_FOLDS, np.random.default_rng(CV_SEED))
+
+
+def phase_kernels(torch, np, coords, forces, cmap, groups, spec):
     ops = packed_operands(torch, coords, forces, cmap, groups, spec)
     errs = [compare_kernel(torch, ops, spec.n_basis, f"config #3, T={N_FRAMES}")]
     gram_error_vs_float64(ops, spec.n_basis)
+    fold = cv_folds(np)[0]
+    fold_ops = packed_operands(torch, coords[fold], forces[fold], cmap, groups, spec)
+    errs.append(compare_kernel(
+        torch, fold_ops, spec.n_basis, f"config #4 CV fold, T={len(fold)}"
+    ))
     for i, (g, t, s, nb) in enumerate(
         [(5, 37, 1, 4), (17, 1007, 3, 7), (145, 333, 2, 7), (16, 16, 1, 1)]
     ):
         edge = random_operands(torch, g, t, s, nb, seed=100 + i)
         label = f"G_pad={edge[0].shape[2]} T={t} S={s} n_basis={nb} masked"
         errs.append(compare_kernel(torch, edge, nb, label))
-    return ops, max(errs)
+    return ops, fold_ops, max(errs)
 
 
 def cuda_ms(torch, fn, reps):
@@ -364,17 +424,19 @@ def plain_fit(np, coords, forces, cmap, groups, featurizer, **kwargs):
     return plain_map, plain_map.map_arrays(coords, forces)[1]
 
 
-def fit_problem(torch, np, coords, forces, cmap, groups, spec, dtype, gram_fn):
+def fit_problem(torch, np, coords, forces, cmap, groups, spec, dtype, gram_fn, seed=7):
     """The main path's per-site QP on the card, (Gram + l2, constraint rows,
     targets), built by the fit's own assembly in ``dtype`` with ``gram_fn``
     on the 20 constraint frames that ``fused_gb_linear_map`` draws from
-    ``constraint_rng=np.random.default_rng(7)``."""
+    ``constraint_rng=np.random.default_rng(seed)``."""
     from aggforce_torch.qp.fusedfeat import _fit_parts, group_factorization
 
     geom = group_factorization(cmap, spec, set(groups))
-    frame_idx = np.random.default_rng(7).choice(len(coords), size=20, replace=False)
+    frame_idx = np.random.default_rng(seed).choice(len(coords), size=20, replace=False)
 
     def dev(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dtype=dtype)
         return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
 
     xyz = dev(coords)
@@ -681,12 +743,6 @@ def fit_breakdown(torch, fit, fit_s, top=12, kind_of=featurized_kind):
 
 def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
     from aggforce_torch import Trajectory
-    from aggforce_torch.ops.gram import (
-        design_rows,
-        site_grams,
-        site_grams_plain,
-        workspace_shapes,
-    )
     from aggforce_torch.qp.fusedfeat import fused_gb_linear_map
 
     traj = Trajectory(
@@ -712,32 +768,44 @@ def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
         traj, cmap, kbt=KBT, spec=spec, constraints=set(groups),
         l2_regularization=L2, constraint_rng=np.random.default_rng(0),
     ), fit_med)
+    report = gram_kernel_times(torch, ops, spec.n_basis, "site_grams")
+    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return report, fit_med
 
-    args = (*ops, spec.n_basis, WIDTH, 1e-3)
+
+def gram_kernel_times(torch, ops, n_basis, name):
+    """Kernel 1 on the operands ``ops`` (as ``packed_operands`` returns
+    them): its time, its plain version's, ``torch.bmm`` of the materialized
+    rows, its stages and its bounds (``kernel_report``)."""
+    from aggforce_torch.ops.gram import (
+        design_rows,
+        site_grams,
+        site_grams_plain,
+        workspace_shapes,
+    )
+
+    args = (*ops, n_basis, WIDTH, 1e-3)
     kernel_ms = cuda_ms(torch, lambda: site_grams(*args), reps=10)
     plain_ms = cuda_ms(torch, lambda: site_grams_plain(*args), reps=3)
     gpos, cg, fg, mask, centers_flat, kcounts = ops
     rows = design_rows(
-        gpos, cg, fg, mask, centers_flat, kcounts, spec.n_basis, 1.0 / WIDTH,
-        1e-3,
+        gpos, cg, fg, mask, centers_flat, kcounts, n_basis, 1.0 / WIDTH, 1e-3,
     )
     rows_t = rows.transpose(1, 2)
     library_ms = cuda_ms(torch, lambda: torch.bmm(rows_t, rows), reps=5)
     del rows, rows_t
 
     s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
-    k_pad = g_pad * (1 + spec.n_basis)
+    k_pad = g_pad * (1 + n_basis)
     flops = 2.0 * 3 * t * s_dim * k_pad * (k_pad + 1) / 2
     n_bytes = 4.0 * (
         sum(x.numel() for x in ops) + s_dim * k_pad * k_pad
     )
     n_chunks = -(-t // workspace_shapes(t, s_dim, k_pad)[0])
-    report = kernel_report(
-        "site_grams", kernel_ms, stage_ms(torch, False, args, n_chunks),
+    return kernel_report(
+        name, kernel_ms, stage_ms(torch, False, args, n_chunks),
         flops, n_bytes, library_ms, plain_ms,
     )
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return report
 
 
 def sweep_fixture():
@@ -1137,11 +1205,12 @@ def linear_map_gates(torch, np, tmap, cmap, constraints):
         fail("constrained pairs do not share their force-map columns")
 
 
-def config1_float64_and_tf32(torch, coords, forces, cmap, groups, host, fit):
+def config1_float64_and_tf32(torch, np, coords, forces, cmap, groups, spec, host, fit):
     """Config #1 twice more with every default: float64 forces on the card
     must stay there (one device fit, no host fit), and with TF32 switched on
     for the process the detection and the fit must still meet their gates
-    (and the switch be left on). Both are held to the float64 host fit."""
+    (and the switch be left on). Both are held to the float64 host fit.
+    Then the featurized paths with TF32 on (``tf32_featurized_checks``)."""
     import aggforce_torch
     from aggforce_torch.qp import qplinear
 
@@ -1189,6 +1258,7 @@ def config1_float64_and_tf32(torch, coords, forces, cmap, groups, host, fit):
         fail("config #1: with TF32 on, the fit misses the float64 host fit")
     if not still_on:
         fail("config #1: the fit did not restore the process's TF32 switch")
+    tf32_featurized_checks(torch, np, coords, forces, cmap, groups, spec)
 
 
 def uniform_map_check(torch, np, coords, forces, cmap, groups):
@@ -1224,7 +1294,7 @@ def uniform_map_check(torch, np, coords, forces, cmap, groups):
         fail("config #1: the uniform map's mapped forces are wrong or off the card")
 
 
-def phase_linear_config1(torch, np, coords_np, forces_np, cmap, groups, smi):
+def phase_linear_config1(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
     """Config #1 (bench.py:673-708) at the standalone width: project_forces
     with every default (qp_linear_map, constrained_inds="auto") on tensors
     on the card."""
@@ -1270,7 +1340,7 @@ def phase_linear_config1(torch, np, coords_np, forces_np, cmap, groups, smi):
     if not errs["planted fault: constrained_inds=set()"] > CONFIG1_REL_RMS_LIMIT:
         fail("config #1: the mapped-force gate does not reject the planted fault")
 
-    config1_float64_and_tf32(torch, coords, forces, cmap, groups, host, fit)
+    config1_float64_and_tf32(torch, np, coords, forces, cmap, groups, spec, host, fit)
     uniform_map_check(torch, np, coords, forces, cmap, groups)
 
     traj = Trajectory(coords=coords, forces=forces)
@@ -1458,6 +1528,531 @@ def phase_linear_sweep(torch, np, smi):
         f"GiB ({smi})")
 
 
+def cv_witness(torch, grams, rows, b_all, l2s, ridge):
+    """Float64 scores (n_l2, k) of every (l2, fold) cell, solved on the card
+    apart from the program: ``eqp_solve_host``'s algorithm (equilibrated
+    KKT system regularized by 1e-12, LU, four refinement sweeps against the
+    unregularized system), batched over sites. ``ridge`` adds the device
+    solver's SOLVER_DELTA ridge to each normalized train Gram. Also returns
+    each cell's largest condition number over its sites (n_l2, k): the
+    largest eigenvalue by 30 power steps over the least one's lower bound,
+    the normalized l2 plus the ridge (the Gram is positive semidefinite)."""
+    g = grams.double()
+    a = rows.double()
+    k, s_dim, n = g.shape[0], g.shape[1], g.shape[-1]
+    m = a.shape[2]
+    eye_n = torch.eye(n, dtype=torch.float64, device=g.device)
+    eye_m = torch.eye(m, dtype=torch.float64, device=g.device)
+    norm = torch.linalg.norm(a, dim=3, keepdim=True) + 1e-300
+    an, bn = a / norm, b_all.double()[..., None] / norm
+    out = torch.zeros((len(l2s), k), dtype=torch.float64)
+    cond = torch.zeros((len(l2s), k), dtype=torch.float64)
+    for i, l2 in enumerate(l2s):
+        p = g.sum(0)[None] - g + l2 * eye_n
+        scale = torch.diagonal(p, dim1=2, dim2=3).sum(-1) / n + 1e-300
+        shift = SOLVER_DELTA if ridge else 0.0
+        pn = p / scale[..., None, None] + shift * eye_n
+        v = torch.ones((k, s_dim, n, 1), dtype=torch.float64, device=g.device)
+        for _ in range(30):
+            v = pn @ v
+            v = v / torch.linalg.norm(v, dim=2, keepdim=True)
+        top_eig = torch.linalg.norm(pn @ v, dim=2)[..., 0]
+        cond[i] = torch.amax(top_eig / (l2 / scale + shift), dim=1).cpu()
+        top = torch.cat([pn, an.transpose(2, 3)], dim=3)
+        k_true = torch.cat([top, torch.cat([an, torch.zeros_like(eye_m).expand(k, s_dim, m, m)], dim=3)], dim=2)
+        k_reg = k_true + 1e-12 * torch.block_diag(eye_n, -eye_m)
+        rhs = torch.cat([torch.zeros((k, s_dim, n, 1), dtype=torch.float64, device=g.device), bn], dim=2)
+        lu, piv = torch.linalg.lu_factor(k_reg)
+        z = torch.linalg.lu_solve(lu, piv, rhs)
+        for _ in range(4):
+            z = z + torch.linalg.lu_solve(lu, piv, rhs - k_true @ z)
+        x = z[:, :, :n, 0]
+        out[i] = torch.einsum("fsi,fsij,fsj->f", x, g, x).cpu()
+    return out.numpy(), cond.numpy()
+
+
+def cv_cells(torch, np, grams, rows, b_all, denoms):
+    """Every (l2, fold) cell of the config-#4 CV from its device problem, in
+    ``fused_gb_cv``'s memory blocks: (scores (n_l2, k) float64, residuals
+    (n_l2, k), [(l2 values of a block, its peak device bytes above what was
+    allocated before it, its predicted bytes)])."""
+    from aggforce_torch.qp.cv import _featurized_solve_scores, _l2_blocks
+
+    k_exp, m_rows, s_dim = grams.shape[-1], rows.shape[2], grams.shape[1]
+    per_problem = 4 * (4 * k_exp * k_exp + k_exp * m_rows + 3 * m_rows * m_rows)
+    block = _l2_blocks(len(CV_L2S), per_problem, CV_FOLDS * s_dim)
+    qfs, resids, peaks = [], [], []
+    for i in range(0, len(CV_L2S), block):
+        l2s = CV_L2S[i : i + block]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        qf, resid = _featurized_solve_scores(
+            grams, rows, b_all, torch.as_tensor(l2s, dtype=torch.float32, device="cuda")
+        )
+        torch.cuda.synchronize()
+        peaks.append((l2s, torch.cuda.max_memory_allocated() - base,
+                      per_problem * CV_FOLDS * s_dim * len(l2s)))
+        qfs.append(qf.cpu().numpy())
+        resids.append(resid.cpu().numpy())
+    qf = np.concatenate(qfs).astype(np.float64) / denoms
+    return qf, np.concatenate(resids), peaks
+
+
+def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
+    """Config #4: ``fused_gb_cv`` at the shape of bench.py's run_cv on the
+    card. Gates: five launches of kernel 1 per CV; every cell that did not
+    escalate within CV_REL_LIMIT of float64 scores from the same Grams; the
+    refit of (fold 0, l2 = 1e3), scored by force_smoothness of its mapped
+    holdout forces, within REFIT_REL_LIMIT of the cell, and a CV on fold
+    Grams without the divergence term (the planted fault) outside it. Then
+    times, frames/s, a profiled CV and the solve block's peak memory."""
+    from aggforce_torch import Trajectory
+    from aggforce_torch.agg import force_smoothness
+    from aggforce_torch.ops.gram import site_grams
+    from aggforce_torch.qp.cv import (
+        _featurized_cv_problem,
+        _featurized_solve_scores,
+        _host_featurized_scores,
+        fused_gb_cv,
+    )
+    from aggforce_torch.qp.fusedfeat import fused_gb_linear_map
+    from aggforce_torch.qp.qplinear import fit_routes
+
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    constraints = set(groups)
+
+    def cv():
+        return fused_gb_cv(
+            coords, forces, cmap, constraints, kbt=KBT, spec=spec, l2_values=CV_L2S,
+            n_folds=CV_FOLDS, n_constraint_frames=20,
+            rng=np.random.default_rng(CV_SEED),
+        )
+
+    reset_counts()
+    t0 = time.perf_counter()
+    table = cv()  # ends in the grid's one host sync
+    first_s = time.perf_counter() - t0
+    launches = site_grams.launches
+    escalated = fit_routes.get("cv_escalated_cells", 0)
+    log(f"config #4: first fused_gb_cv {first_s:.3f} s; site_grams launches "
+        f"{launches} (must be {CV_FOLDS}); escalated cells {escalated}")
+    if launches != CV_FOLDS:
+        fail(f"config #4: the CV launched site_grams {launches} times, not {CV_FOLDS}")
+    cv_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cv()
+        cv_s.append(time.perf_counter() - t0)
+    cv_min, cv_med = min(cv_s), float(np.median(cv_s))
+    log(f"config #4 steady-state CV ({len(CV_L2S)} l2 values x {CV_FOLDS} folds x "
+        f"{cmap.n_cg_sites} sites): min {cv_min:.4f} s, median {cv_med:.4f} s -> "
+        f"{N_FRAMES / cv_min:.1f} frames/s (min), {N_FRAMES / cv_med:.1f} frames/s "
+        f"(median); all {', '.join(f'{x:.4f}' for x in cv_s)} s ({smi})")
+
+    def problem(gram_fn=site_grams):
+        return _featurized_cv_problem(
+            coords, forces, cmap, constraints, KBT, spec, CV_FOLDS, 20,
+            np.random.default_rng(CV_SEED), gram_fn=gram_fn,
+        )
+
+    grams, rows, b_all, folds, samples = problem()
+    denoms = np.array([3 * len(f) * cmap.n_cg_sites for f in folds], dtype=np.float64)
+    cells, resid, peaks = cv_cells(torch, np, grams, rows, b_all, denoms)
+    for l2s, peak, predicted in peaks:
+        log(f"  solve block l2 {l2s}: peak device memory {peak / 2**30:.3f} GiB above "
+            f"the Grams (predicted by _l2_blocks' accounting {predicted / 2**30:.3f} GiB)")
+    t0 = time.perf_counter()
+    exact = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=False)[0] / denoms
+    posed, cond = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=True)
+    posed = posed / denoms
+    limit = CV_REL_LIMIT + cond * F32_EPS
+    witness_s = time.perf_counter() - t0
+    li = CV_L2S.index(1e3)
+    t0 = time.perf_counter()
+    one = np.zeros(cells.shape, dtype=bool)
+    one[li, 0] = True
+    host_cell = _host_featurized_scores(
+        *(x.cpu().numpy().astype(np.float64) for x in (grams, rows, b_all)),
+        CV_L2S, np.zeros(cells.shape), one,
+    )[li, 0] / denoms[0]
+    host_rel = abs(host_cell - exact[li, 0]) / abs(exact[li, 0])
+    log(f"  float64 witness on the card, all {cells.size} cells with and without "
+        f"the solver's ridge: {witness_s:.2f} s; the program's host oracle "
+        f"(_host_featurized_scores) on (fold 0, l2 1e3): {time.perf_counter() - t0:.2f} "
+        f"s, {host_rel:.2e} off the witness")
+    esc = ~(resid <= 1e-4)  # NaN-aware, as fused_gb_cv decides
+    rel = np.abs(cells - posed) / np.abs(posed)
+    bias = np.abs(posed - exact) / np.abs(exact)
+    failed = []
+    if not host_rel <= 1e-9:
+        failed.append("the card's float64 witness disagrees with the host oracle")
+    for i, l2 in enumerate(CV_L2S):
+        got = table[float(l2)][0]
+        # escalated cells hold the host oracle's scores: their sum, read back
+        # from the CV's mean, beside the witness's
+        host_sum = CV_FOLDS * got - float(cells[i][~esc[i]].sum())
+        if esc[i].any():
+            log(f"  l2 {l2:g}: escalated cells sum to {host_sum:.10g} in the CV, "
+                f"{float(exact[i][esc[i]].sum()):.10g} in the card's float64 witness "
+                f"(condition up to {cond[i].max():.3g})")
+        log(f"  l2 {l2:g}: CV score {got:.8g}; float64 witness {posed[i].mean():.8g} "
+            f"with the solver's ridge, {exact[i].mean():.8g} without (ridge bias "
+            f"{bias[i].max():.2e}); condition up to {cond[i].max():.3g}, limit "
+            f"{limit[i].max():.2e}; cells rel err {', '.join(f'{x:.2e}' for x in rel[i])}; "
+            f"residuals {', '.join(f'{x:.1e}' for x in resid[i])}; escalated folds "
+            f"{np.nonzero(esc[i])[0].tolist()}")
+        if not esc[i].any() and not abs(got - cells[i].mean()) <= 1e-6 * abs(got):
+            failed.append(f"the CV's score at l2 {l2:g} is not its cells' mean")
+    worst = float(np.max(np.where(esc, 0.0, rel / limit)))
+    log(f"  config #4: {int(esc.sum())} escalated cells; the others against the "
+        f"float64 witness of the posed problem: largest rel err / its limit "
+        f"{worst:.3e} (must be <= 1); largest rel err at l2 >= 1e3 "
+        f"{float(np.max(np.where(esc, 0.0, rel)[li:])):.3e}")
+    if int(esc.sum()) != escalated:
+        failed.append(f"the CV escalated {escalated} cells, its residuals say {int(esc.sum())}")
+    if not worst <= 1.0:
+        failed.append(f"a CV cell lies {worst:.3e} of its limit from its float64 score")
+
+    # gate (c): refit (fold 0, l2 = 1e3) on the train frames with that
+    # fold's constraint frames, and score its mapped holdout forces
+    train = np.concatenate(folds[1:])
+    position = {int(frame): i for i, frame in enumerate(train)}
+
+    class FoldSample:
+        """Hands the fit the fold's constraint frames, as train positions."""
+
+        def choice(self, n, size, replace):
+            return np.array([position[int(f)] for f in samples[0]])
+
+    train_dev = torch.as_tensor(train, device="cuda")
+    hold = torch.as_tensor(folds[0], device="cuda")
+    refit = fused_gb_linear_map(
+        Trajectory(coords=coords[train_dev], forces=forces[train_dev]), cmap,
+        kbt=KBT, spec=spec, constraints=constraints, l2_regularization=1e3,
+        n_constraint_frames=20, constraint_rng=FoldSample(),
+    )
+    direct = force_smoothness(refit.force_map(forces[hold], coords[hold]))
+    fault_problem = problem(without_divergence)[:3]
+    fault_qf, fault_resid = _featurized_solve_scores(
+        *fault_problem, torch.as_tensor([1e3], dtype=torch.float32, device="cuda")
+    )
+    fault_qf = fault_qf.cpu().numpy().astype(np.float64)
+    if not float(fault_resid[0, 0]) <= 1e-4:  # escalated, as fused_gb_cv would
+        fault_qf = _host_featurized_scores(
+            *(x.cpu().numpy().astype(np.float64) for x in fault_problem), [1e3],
+            fault_qf, np.array([[True] + [False] * (CV_FOLDS - 1)]),
+        )
+    fault = float(fault_qf[0, 0]) / denoms[0]
+    cv_cell = exact[li, 0] if esc[li, 0] else cells[li, 0]
+    refit_rel = abs(cv_cell - direct) / direct
+    fault_rel = abs(fault - direct) / direct
+    log(f"  refit of (fold 0, l2 1e3) on its {len(train)} train frames: holdout "
+        f"force_smoothness {direct:.8g}, CV cell {cv_cell:.8g}, rel "
+        f"{refit_rel:.3e} (limit {REFIT_REL_LIMIT:.0e}); planted fault (fold Grams "
+        f"without the divergence term) {fault:.8g}, rel {fault_rel:.3e}")
+    if not refit_rel <= REFIT_REL_LIMIT:
+        failed.append("the refit's holdout score misses the CV cell")
+    if not fault_rel > REFIT_REL_LIMIT:
+        failed.append("the refit gate does not reject the planted fault")
+    if failed:
+        fail("config #4: " + "; ".join(failed))
+    del grams, rows, b_all
+    fit_breakdown(torch, cv, cv_med)
+    return launches, first_s, cv_min, cv_med
+
+
+def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
+    """``project_forces_grid_cv(fast=True)`` on the card: a (featurizer x l2)
+    grid must equal ``fused_gb_cv_grid``'s table for the same generator and
+    launch kernel 1 five times per featurizer; the linear grid at config #1
+    (``linear_map_cv``) must lie within CV_REL_LIMIT of float64 scores and
+    launch no kernel. Constraints are detected (``constrained_inds="auto"``)."""
+    import aggforce_torch
+    from aggforce_torch import Curry, Multifeaturize, gb_feat, id_feat
+    from aggforce_torch.agg import NRUNS_KNAME, SCORES_KNAME
+    from aggforce_torch.ops.gram import site_grams
+    from aggforce_torch.qp import qp_feat_linear_map
+    from aggforce_torch.qp.cv import _host_linear_scores, fused_gb_cv_grid
+    from aggforce_torch.qp.fusedfeat import recognize_canonical_featurizer
+    from aggforce_torch.qp.qplinear import _linear_gram, _reduced, constraint_labels
+    from aggforce_torch.utils.device import full_fp32
+
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    feats = [
+        Multifeaturize([id_feat, Curry(gb_feat, outer=OUTER, n_basis=nb, width=WIDTH)])
+        for nb in (5, 7)
+    ]
+    l2s = [1e2, 1e3]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = aggforce_torch.project_forces_grid_cv(
+        {"featurizer": feats, "l2_regularization": l2s}, coords, forces,
+        n_folds=CV_FOLDS, rng=np.random.default_rng(CV_SEED), fast=True,
+        coord_map=cmap, method=qp_feat_linear_map, kbt=KBT, n_constraint_frames=20,
+    )
+    grid_s = time.perf_counter() - t0
+    launches = site_grams.launches
+    direct = fused_gb_cv_grid(
+        coords, forces, cmap, set(groups), KBT,
+        [recognize_canonical_featurizer(f) for f in feats], l2s, n_folds=CV_FOLDS,
+        n_constraint_frames=20, rng=np.random.default_rng(CV_SEED),
+    )
+    worst, bitwise, runs = 0.0, True, set()
+    for label, score in out[SCORES_KNAME].items():
+        expect = direct[(feats.index(label.featurizer), float(label.l2_regularization))][0]
+        worst = max(worst, abs(score - expect) / abs(expect))
+        bitwise &= score == expect
+        runs.add(out[NRUNS_KNAME][label])
+    log(f"featurized grid through project_forces_grid_cv (n_basis 5 and 7 x l2 "
+        f"{l2s}): {grid_s:.3f} s, site_grams launches {launches} (must be "
+        f"{CV_FOLDS * len(feats)}); against fused_gb_cv_grid: largest rel diff "
+        f"{worst:.3e}, bitwise equal {bitwise}; runs per point {sorted(runs)}")
+    if launches != CV_FOLDS * len(feats):
+        fail(f"the featurized grid launched site_grams {launches} times")
+    if len(out[SCORES_KNAME]) != len(feats) * len(l2s) or runs != {CV_FOLDS}:
+        fail("the featurized grid's table is not the grid")
+    if not worst <= 1e-6:
+        fail("the featurized grid through project_forces_grid_cv differs from fused_gb_cv_grid")
+
+    reset_counts()
+    lin = aggforce_torch.project_forces_grid_cv(
+        {"l2_regularization": CV_L2S}, coords, forces, n_folds=CV_FOLDS,
+        rng=np.random.default_rng(CV_SEED), fast=True, coord_map=cmap,
+    )
+    read_counts("config #1 linear CV through project_forces_grid_cv")
+    folds = cv_folds(np)
+    labels_np, r = constraint_labels(cmap.n_fg_sites, set(groups))
+    labels = torch.as_tensor(labels_np, dtype=torch.int64, device="cuda")
+    with full_fp32():
+        grams = torch.stack([
+            _linear_gram(forces[torch.as_tensor(idx, device="cuda")].float(), labels, r)
+            for idx in folds
+        ])
+    a_mat = _reduced(torch.as_tensor(cmap.standard_matrix, dtype=torch.float32,
+                                     device="cuda"), labels, r)
+    ridge = np.diag(np.bincount(labels_np, minlength=r)).astype(np.float64)
+    exact = _host_linear_scores(
+        grams.cpu().numpy().astype(np.float64), a_mat.cpu().numpy().astype(np.float64),
+        np.eye(cmap.n_cg_sites), ridge, CV_L2S, np.zeros((len(CV_L2S), CV_FOLDS)),
+        np.ones((len(CV_L2S), CV_FOLDS), dtype=bool),
+    ) / np.array([3 * len(f) * cmap.n_cg_sites for f in folds])
+    worst = 0.0
+    for i, (label, score) in enumerate(lin[SCORES_KNAME].items()):
+        expect = float(exact[i].mean())
+        worst = max(worst, abs(score - expect) / expect)
+    log(f"linear grid through project_forces_grid_cv (config #1, l2 {CV_L2S}): "
+        f"largest rel err against float64 scores {worst:.3e} (limit {CV_REL_LIMIT:.0e})")
+    if not worst <= CV_REL_LIMIT:
+        fail("the linear CV's scores miss the float64 scores")
+    return launches
+
+
+def phase_batch(torch, np, coords_np, forces_np, cmap, groups, spec, single_med, smi):
+    """The batch fits at config #3 (bench.py:887-927): 4 windows of 64 seeds,
+    one untimed warm call and 3 timed calls. Gates: one kernel-1 launch per
+    window, every fit finite, the first and last seed of each window within
+    J_GAP_LIMIT of its float64 optimum; two seeds refitted singly are
+    printed beside their batch fits."""
+    from aggforce_torch import Trajectory
+    from aggforce_torch.ops.gram import site_grams, site_grams_plain
+    from aggforce_torch.qp.fusedfeat import fused_gb_linear_map, fused_gb_linear_map_batch
+
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    traj = Trajectory(coords=coords, forces=forces)
+    seeds = list(range(BATCH_WINDOWS * BATCH_WINDOW))
+    kw = dict(kbt=KBT, spec=spec, constraints=set(groups), l2_regularization=L2)
+    calls = []
+    for call in range(4):
+        reset_counts()
+        t0 = time.perf_counter()
+        maps = fused_gb_linear_map_batch(
+            traj, cmap, seeds=seeds, flush_every=BATCH_WINDOW, **kw
+        )
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+        if site_grams.launches != BATCH_WINDOWS:
+            fail(f"the batch fits launched site_grams {site_grams.launches} times, "
+                 f"not once per window ({BATCH_WINDOWS})")
+    timed = calls[1:]
+    med = float(np.median(timed))
+    n_fits = len(seeds)
+    log(f"batch fits ({BATCH_WINDOWS} windows x {BATCH_WINDOW} seeds): warm call "
+        f"{calls[0]:.3f} s, then {', '.join(f'{x:.4f}' for x in timed)} s; site_grams "
+        f"launches {BATCH_WINDOWS} per call; median {med * 1e3 / n_fits:.3f} ms per "
+        f"fit, {n_fits * N_FRAMES / med:.1f} frames/s pipelined (min "
+        f"{min(timed) * 1e3 / n_fits:.3f} ms per fit); single fit median "
+        f"{single_med * 1e3:.2f} ms, {N_FRAMES / single_med:.1f} frames/s ({smi})")
+    coefs = torch.stack([m.force_map._coefs for m in maps])
+    escalated = sum(bool(m.force_map.tags["escalated"]) for m in maps)
+    finite = bool(torch.isfinite(coefs).all())
+    log(f"  {len(maps)} fits, finite {finite}, escalated {escalated}, largest "
+        f"solver_resid {max(m.force_map.tags['solver_resid'] for m in maps):.3e}")
+    if len(maps) != n_fits or not finite:
+        fail("the batch fits are not all finite")
+    gaps = {}
+    for w in range(BATCH_WINDOWS):
+        for seed in (w * BATCH_WINDOW, (w + 1) * BATCH_WINDOW - 1):
+            gram, rows, _ = fit_problem(
+                torch, np, coords, forces, cmap, groups, spec, torch.float64,
+                site_grams_plain, seed=seed,
+            )
+            gaps[seed], _ = objective_gap(
+                np, gram.cpu().numpy(), rows.cpu().numpy(),
+                np.stack(maps[seed].force_map.tags["coef_list"]).astype(np.float64),
+            )
+    log(f"  objective gap to the float64 optimum, first and last seed of each "
+        f"window: {', '.join(f'{s}: {g:+.3e}' for s, g in gaps.items())} (limit "
+        f"{J_GAP_LIMIT:.0e})")
+    for seed in (seeds[0], seeds[-1]):
+        single = fused_gb_linear_map(
+            traj, cmap, constraint_rng=np.random.default_rng(seed), **kw
+        ).force_map
+        batch = maps[seed].force_map
+        coef_diff = float((single._coefs - batch._coefs).abs().max())
+        f_diff = float((single(forces, coords) - batch(forces, coords)).abs().max())
+        log(f"  seed {seed} refitted singly: largest coefficient difference "
+            f"{coef_diff:.3e}, largest mapped-force difference {f_diff:.3e}; "
+            f"bitwise equal {bool(torch.equal(single._coefs, batch._coefs))}")
+    bad = [s for s, g in gaps.items() if not g <= J_GAP_LIMIT]
+    if bad:
+        fail(f"batch fits of seeds {bad} miss the objective gate")
+    return BATCH_WINDOWS, med / n_fits
+
+
+def tf32_featurized_checks(torch, np, coords, forces, cmap, groups, spec):
+    """The featurized paths and the linear map's application with TF32 on
+    for the process: a config-#3 fit (also held to the objective gate), a
+    ``FusedGBMap`` and a ``TLinearMap`` application and one CV cell must
+    read what they read with TF32 off (within TF32_REL_LIMIT of the largest
+    entry), and the switch must still be on afterwards. The planted check:
+    the fit with every full-fp32 scope bypassed must move by more. Also
+    times what entering and leaving the scope costs."""
+    from aggforce_torch import Trajectory
+    from aggforce_torch.ops.gram import site_grams_plain
+    from aggforce_torch.ops.torchcore import trjdot
+    from aggforce_torch.qp import qp_linear_map
+    from aggforce_torch.qp.cv import fused_gb_cv
+    from aggforce_torch.qp.fusedfeat import fused_gb_linear_map
+    from aggforce_torch.utils.device import full_fp32
+
+    traj = Trajectory(coords=coords, forces=forces)
+
+    def fit():
+        return fused_gb_linear_map(
+            traj, cmap, kbt=KBT, spec=spec, constraints=set(groups),
+            l2_regularization=L2, constraint_rng=np.random.default_rng(7),
+        ).force_map
+
+    # the maps whose applications are checked, fitted with TF32 off
+    fused_map = fit()
+    linear_map = qp_linear_map(traj, cmap, constraints=set(groups)).force_map
+
+    def outputs():
+        cell = fused_gb_cv(
+            coords, forces, cmap, set(groups), kbt=KBT, spec=spec, l2_values=[L2],
+            n_folds=CV_FOLDS, rng=np.random.default_rng(CV_SEED),
+        )[L2][0]
+        return {
+            "config #3 fit, coefficients": fit()._coefs,
+            "FusedGBMap application": fused_map(forces, coords),
+            "TLinearMap application": linear_map(forces),
+            "CV cell (l2 1e3, mean of 5 folds)": torch.tensor([cell]),
+        }
+
+    off = outputs()
+    gram, rows, _ = fit_problem(
+        torch, np, coords, forces, cmap, groups, spec, torch.float64, site_grams_plain
+    )
+
+    def rel(got, ref):
+        return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        on = outputs()
+        still_on = matmul.allow_tf32
+        # the planted check: the same fit with every full-fp32 scope
+        # bypassed (both of torch's switches out of the scope's reach)
+        setter, real = torch.set_float32_matmul_precision, torch.backends.cuda.matmul
+        torch.set_float32_matmul_precision = lambda precision: None
+        torch.backends.cuda.matmul = types.SimpleNamespace(fp32_precision="tf32")
+        try:
+            bypassed = fit()._coefs
+        finally:
+            torch.set_float32_matmul_precision = setter
+            torch.backends.cuda.matmul = real
+        scope_on_us = scope_cost(full_fp32)
+    finally:
+        matmul.allow_tf32 = False
+    scope_off_us = scope_cost(full_fp32)
+    failed = []
+    for name, ref in off.items():
+        err = rel(on[name], ref)
+        log(f"  TF32 on: {name} vs TF32 off: {err:.3e} of the largest entry "
+            f"(limit {TF32_REL_LIMIT:.0e}), bitwise equal {bool(torch.equal(on[name], ref))}")
+        if not err <= TF32_REL_LIMIT:
+            failed.append(f"with TF32 on, the {name} moved by {err:.3e}")
+    gap, _ = objective_gap(
+        np, gram.cpu().numpy(), rows.cpu().numpy(),
+        on["config #3 fit, coefficients"].double().cpu().numpy(),
+    )
+    moved = rel(bypassed, off["config #3 fit, coefficients"])
+    gap_bypassed, _ = objective_gap(
+        np, gram.cpu().numpy(), rows.cpu().numpy(), bypassed.double().cpu().numpy()
+    )
+    log(f"  TF32 on: config #3 fit objective gap {gap:+.3e} (limit {J_GAP_LIMIT:.0e}); "
+        f"switch still on afterwards: {still_on}; planted: the fit with its scopes "
+        f"bypassed moved by {moved:.3e} of the largest coefficient (must exceed "
+        f"{TF32_REL_LIMIT:.0e}), objective gap {gap_bypassed:+.3e}")
+    if not gap <= J_GAP_LIMIT:
+        failed.append("with TF32 on, the config #3 fit misses the objective gate")
+    if not still_on:
+        failed.append("the featurized paths did not leave the TF32 switch on")
+    if not moved > TF32_REL_LIMIT:
+        failed.append("the TF32 check does not see a fit with its scopes bypassed")
+
+    # the scope on a hot function: trjdot at config #1's application shape
+    # (device-bound) and on 256 frames (launch-bound), scoped and unscoped in
+    # turns, the least of five rounds of 200 calls
+    factor = torch.as_tensor(linear_map.standard_matrix, dtype=torch.float32, device="cuda")
+    for points in (forces.float(), forces[:256].float()):
+        per_call = {"scoped": [], "unscoped": []}
+        for _ in range(5):
+            for name, fn in (("scoped", trjdot), ("unscoped", trjdot.__wrapped__)):
+                fn(points, factor)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn(points, factor)
+                torch.cuda.synchronize()
+                per_call[name].append((time.perf_counter() - t0) / 200 * 1e6)
+        log(f"  trjdot at config #1 width, T={points.shape[0]} (TF32 off, host clock, "
+            f"least of 5 rounds of 200 calls): {min(per_call['scoped']):.2f} us per "
+            f"call scoped, {min(per_call['unscoped']):.2f} us unscoped")
+    log(f"  full_fp32 scope alone: {scope_off_us:.3f} us per entry and exit with "
+        f"TF32 off, {scope_on_us:.3f} us with TF32 on (switch flipped and restored)")
+    if failed:
+        fail("; ".join(failed))
+
+
+def scope_cost(full_fp32, n=20_000):
+    """Host microseconds of one entry and exit of ``full_fp32()``, the least
+    of five rounds of ``n``."""
+    rounds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with full_fp32():
+                pass
+        rounds.append((time.perf_counter() - t0) / n * 1e6)
+    return min(rounds)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1468,16 +2063,30 @@ def main() -> int:
 
     coords, forces, cmap, groups = fixture()
     spec = GBFeatSpec(outer=OUTER, n_basis=N_BASIS, width=WIDTH)
-    ops, max_err = phase_kernels(torch, coords, forces, cmap, groups, spec)
+    ops, fold_ops, max_err = phase_kernels(torch, np, coords, forces, cmap, groups, spec)
     spec, launches, first_fit_s, peak_bytes = phase_main_path(
         torch, np, coords, forces, cmap, groups
     )
     log(f"first fit {first_fit_s:.3f} s; peak device memory of the main path "
         f"{peak_bytes / 2**20:.1f} MiB ({smi})")
-    times = phase_times(torch, np, coords, forces, cmap, groups, spec, ops)
-    del ops
+    times, single_med = phase_times(torch, np, coords, forces, cmap, groups, spec, ops)
+    fold_times = gram_kernel_times(
+        torch, fold_ops, spec.n_basis, "site_grams at the config-#4 fold shape"
+    )
+    del ops, fold_ops
+    cv_launches, cv_first_s, cv_min, cv_med = phase_cv_config4(
+        torch, np, coords, forces, cmap, groups, spec, smi
+    )
+    grid_launches = phase_cv_grids(torch, np, coords, forces, cmap, groups)
+    batch_launches, s_per_fit = phase_batch(
+        torch, np, coords, forces, cmap, groups, spec, single_med, smi
+    )
+    log(f"config #4 CV: first {cv_first_s:.3f} s, min {cv_min:.4f} s, median "
+        f"{cv_med:.4f} s ({N_FRAMES / cv_med:.1f} frames/s); batch fits "
+        f"{s_per_fit * 1e3:.3f} ms per fit against {single_med * 1e3:.2f} ms single "
+        f"({smi})")
     tiled_launches, tiled_err, tiled_times = phase_sweep(torch, np, smi)
-    phase_linear_config1(torch, np, coords, forces, cmap, groups, smi)
+    phase_linear_config1(torch, np, coords, forces, cmap, groups, spec, smi)
     phase_linear_sweep(torch, np, smi)
     kernels = [
         {
@@ -1485,9 +2094,16 @@ def main() -> int:
             "route": "cuda",
             "source": "aggforce_torch/csrc/site_grams.cu",
             "replaces": "aggforce_tpu/ops/pallas_gram.py:36",
-            "launches": launches,
+            "launches": launches + cv_launches + grid_launches + batch_launches,
+            "launches_by_path": {
+                "config #3 fit (project_forces)": launches,
+                "config #4 CV (fused_gb_cv)": cv_launches,
+                "featurized grid (project_forces_grid_cv)": grid_launches,
+                "batch fits (fused_gb_linear_map_batch)": batch_launches,
+            },
             "max_abs_err": max_err,
             **times,
+            "at_fold_shape": fold_times,
         },
         {
             "name": "site_grams_tiled",

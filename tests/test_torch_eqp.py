@@ -187,3 +187,34 @@ def test_auglag_single_problem_bit_equal_in_batch():
         )
         torch.testing.assert_close(x1, xb[s], rtol=0, atol=0)
         torch.testing.assert_close(r1, rb[s], rtol=0, atol=0)
+
+
+def _dependent_rows(seed, f=3, s=2, n=12, m=6):
+    """Shared-factor problems whose constraint rows repeat (a singular Schur
+    complement, so the lazy shift escalates)."""
+    P, A, B = _problems(seed, f=f, s=s, n=n, m=m)
+    A[:, :, m // 2 :] = A[:, :, : m // 2]
+    B[:, :, m // 2 :] = B[:, :, : m // 2]
+    return P, A, B
+
+
+@pytest.mark.parametrize("make", [_problems, _dependent_rows], ids=["random", "dependent-rows"])
+@pytest.mark.parametrize("solver", ["shared", "auglag"])
+def test_host_checks_off_gives_the_same_solve(make, solver):
+    """``host_checks=False`` (every shift level, every sweep, selected on the
+    device) returns the bits of the host-checked solve."""
+    P, A, B = (torch.as_tensor(x) for x in make(21))
+    outs = []
+    for host_checks in (True, False):
+        if solver == "shared":
+            outs.append(peqp.batched_eqp_solve_shared(
+                P, A, B, iters=40, return_resid=True, host_checks=host_checks
+            ))
+        else:
+            s_dim = P.shape[0]
+            outs.append(peqp.batched_eqp_solve_auglag(
+                P, A[0, :s_dim], B[0, :s_dim], iters=40, return_resid=True,
+                host_checks=host_checks,
+            ))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)

@@ -21,7 +21,8 @@ def test_import_pulls_in_no_jax():
         "aggforce_torch.qp.fusedfeat, aggforce_torch.utils.synth, "
         "aggforce_torch.constraints.finder, aggforce_torch.qp.qplinear, "
         "aggforce_torch.qp.basicagg, aggforce_torch.qp.cv, "
-        "aggforce_torch.native, aggforce_torch.utils.pdblite\n"
+        "aggforce_torch.native, aggforce_torch.utils.pdblite, "
+        "aggforce_torch.ops.eqp, aggforce_torch.ops.torchcore, aggforce_torch.agg\n"
         "bad = [m for m in sys.modules if m in ('jax', 'aggforce_tpu') "
         "or m.startswith(('jax.', 'aggforce_tpu.'))]\n"
         "print(bad)\n"
@@ -152,6 +153,36 @@ def _device_synthesis():
     synthesize_trajectory_device(np.zeros((4, 3)), [frozenset((0, 1))], 8)
 
 
+def _featurized_cv():
+    from aggforce_torch.qp.cv import fused_gb_cv
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec
+
+    coords, forces, cmap = _fixture()
+    fused_gb_cv(coords, forces, cmap, set(), 0.7, GBFeatSpec(outer=1.0, n_basis=2), [1e3], n_folds=2)
+
+
+def _featurized_grid_cv():
+    from aggforce_torch.qp.cv import fused_gb_cv_grid
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec
+
+    coords, forces, cmap = _fixture()
+    fused_gb_cv_grid(
+        coords, forces, cmap, set(), 0.7, [GBFeatSpec(outer=1.0, n_basis=2)], [1e3],
+        n_folds=2,
+    )
+
+
+def _batch_fits():
+    from aggforce_torch import Trajectory
+    from aggforce_torch.qp import GBFeatSpec, fused_gb_linear_map_batch
+
+    coords, forces, cmap = _fixture()
+    fused_gb_linear_map_batch(
+        Trajectory(coords=coords, forces=forces), cmap, kbt=0.7,
+        spec=GBFeatSpec(outer=1.0, n_basis=3), seeds=[0, 1],
+    )
+
+
 def _linear_map_carry():
     from aggforce_torch.convert import separable_map_from_numpy
 
@@ -162,7 +193,8 @@ def _linear_map_carry():
     "entry",
     [_project_forces, _fused_fit, _blocked_fit, _tlinear_map, _map_carry, _gb_feat,
      _project_forces_defaults, _linear_fit, _finder, _fold_probe, _linear_cv,
-     _device_synthesis, _linear_map_carry],
+     _device_synthesis, _linear_map_carry, _featurized_cv, _featurized_grid_cv,
+     _batch_fits],
     ids=lambda f: f.__name__.strip("_"),
 )
 def test_entry_points_need_cuda_unless_told(monkeypatch, entry):

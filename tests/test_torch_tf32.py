@@ -1,0 +1,159 @@
+"""Full float32 under a process-wide TF32 switch: every product of the
+featurized paths and of the map applications runs with TF32 off (the JAX
+package's ``precision="highest"``), whichever of torch's two switches the
+process used, and the switch is back afterwards."""
+
+from contextlib import contextmanager
+
+import numpy as np
+import pytest
+import torch
+
+import aggforce_torch as pt
+from aggforce_torch.ops import eqp as peqp
+from aggforce_torch.ops import gram as pgram
+from aggforce_torch.ops.torchcore import trjdot
+from aggforce_torch.qp import cv as pcv
+from aggforce_torch.qp import fusedfeat as pff
+from aggforce_torch.utils.synth import synthesize_trajectory
+
+KBT = 0.7
+N_ATOMS = 24
+GROUPS = {frozenset((i, i + 1)) for i in range(0, 8, 2)}
+SITES = [[i] for i in range(0, N_ATOMS, 9)]
+SPEC = pff.GBFeatSpec(outer=2.0, n_basis=4)
+FULL = ("highest", "ieee")
+
+
+@contextmanager
+def tf32_on(api):
+    """TF32 products allowed for the whole process, through torch's legacy
+    switch or its newer one; the default (off) is restored on exit."""
+    matmul = torch.backends.cuda.matmul
+    try:
+        if api == "legacy":
+            torch.set_float32_matmul_precision("high")
+        else:
+            matmul.fp32_precision = "tf32"
+        yield
+    finally:
+        if api == "legacy":
+            torch.set_float32_matmul_precision("highest")
+        else:
+            matmul.fp32_precision = "ieee"
+
+
+def _cublas_tf32() -> str:
+    """The process's TF32 setting for cuBLAS float32 products."""
+    try:
+        return torch.get_float32_matmul_precision()
+    except RuntimeError:  # the newer switch is in use
+        return torch.backends.cuda.matmul.fp32_precision
+
+
+@pytest.fixture(scope="module")
+def system():
+    base = np.random.default_rng(0).normal(scale=0.5, size=(N_ATOMS, 3))
+    coords, forces = synthesize_trajectory(base, GROUPS, 96, seed=3)
+    return coords, forces
+
+
+def _fit(coords, forces):
+    return pff.fused_gb_linear_map(
+        pt.Trajectory(coords=coords, forces=forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
+        kbt=KBT, spec=SPEC, constraints=GROUPS, l2_regularization=1e3,
+        n_constraint_frames=6, constraint_rng=np.random.default_rng(1), device="cpu",
+    )
+
+
+def _pack(coords, forces):
+    geom = pff.group_factorization(pt.LinearMap(SITES, n_fg_sites=N_ATOMS), SPEC, GROUPS)
+    f32 = [torch.as_tensor(x, dtype=torch.float32) for x in (
+        coords, forces, np.ones(len(coords)), pt.LinearMap(SITES, n_fg_sites=N_ATOMS).standard_matrix,
+        geom["group_mean"], geom["onehot"], geom["counts"],
+    )]
+    return pgram.pack_operands(*f32, KBT, SPEC.n_basis, torch.as_tensor(geom["centers"]))
+
+
+def _cv(coords, forces):
+    table = pcv.fused_gb_cv(
+        coords, forces, pt.LinearMap(SITES, n_fg_sites=N_ATOMS), GROUPS, KBT, SPEC,
+        [1e3], n_folds=3, n_constraint_frames=5, rng=np.random.default_rng(2), device="cpu",
+    )
+    return torch.tensor(table[1e3][:2])
+
+
+def _batch_solve(coords, forces):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(3, 30, 10))
+    P = torch.as_tensor(np.einsum("sti,stj->sij", x, x) + 0.1 * np.eye(10), dtype=torch.float32)
+    A = torch.as_tensor(rng.normal(size=(4, 3, 4, 10)), dtype=torch.float32)
+    B = torch.as_tensor(rng.normal(size=(4, 3, 4, 1)), dtype=torch.float32)
+    return peqp.batched_eqp_solve_shared(P, A, B, iters=40, host_checks=False)
+
+
+def _batch_fits(coords, forces):
+    maps = pff.fused_gb_linear_map_batch(
+        pt.Trajectory(coords=coords, forces=forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
+        kbt=KBT, spec=SPEC, seeds=[1, 2], constraints=GROUPS, l2_regularization=1e3,
+        n_constraint_frames=6, device="cpu",
+    )
+    return torch.stack([m.force_map._coefs for m in maps])
+
+
+def _trjdot(coords, forces):
+    factor = torch.as_tensor(np.random.default_rng(4).normal(size=(3, N_ATOMS)), dtype=torch.float32)
+    return trjdot(torch.as_tensor(forces), factor)
+
+
+def _fused_map(coords, forces, fitted={}):
+    if "map" not in fitted:
+        fitted["map"] = _fit(coords, forces).force_map
+    fmap = fitted["map"]
+    return torch.cat([
+        fmap(torch.as_tensor(forces), torch.as_tensor(coords)).reshape(-1),
+        torch.as_tensor(fmap.scale(coords)).reshape(-1),
+        torch.as_tensor(fmap.trans(coords)).reshape(-1),
+    ])
+
+
+PATHS = {
+    "pack_operands": _pack,
+    "featurized fit": lambda c, f: _fit(c, f).force_map._coefs,
+    "featurized CV": _cv,
+    "batch solve": _batch_solve,
+    "batch fits": _batch_fits,
+    "trjdot": _trjdot,
+    "FusedGBMap": _fused_map,
+}
+
+
+@pytest.mark.parametrize("api", ["legacy", "new"])
+@pytest.mark.parametrize("path", sorted(PATHS), ids=lambda p: p.replace(" ", "-"))
+def test_products_are_full_fp32_under_process_tf32(system, monkeypatch, path, api):
+    """Every einsum and matmul on the path sees TF32 off while the process
+    has it on; the outputs are those of a run with TF32 off; the process's
+    setting is back afterwards."""
+    coords, forces = system
+    ref = PATHS[path](coords, forces)
+    seen = []
+
+    def recording(fn):
+        def wrapper(*args, **kwargs):
+            seen.append(_cublas_tf32())
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    monkeypatch.setattr(torch, "einsum", recording(torch.einsum))
+    monkeypatch.setattr(torch, "matmul", recording(torch.matmul))
+    with tf32_on(api):
+        before = _cublas_tf32()
+        out = PATHS[path](coords, forces)
+        after = _cublas_tf32()
+    assert before in ("high", "tf32") and after == before
+    assert seen and set(seen) <= set(FULL), sorted(set(seen))
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(outs, refs):
+        torch.testing.assert_close(o, r, rtol=0, atol=0)
