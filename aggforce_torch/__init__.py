@@ -11,7 +11,8 @@ the host. The per-site featurized Gram, the hot op of the featurized fit,
 is a hand-written CUDA kernel (``csrc/site_grams.cu``) built on first use;
 the sweep-scale site-blocked fit (``qp.fused_gb_linear_map_blocked``) runs
 a second one (``csrc/site_grams_tiled.cu``). The static linear map
-(``qp_linear_map``, the default method) and the constraint finder run as
+(``qp_linear_map``, the default method), the constraint finder and the
+Gaussian noised maps (``joptgauss_map`` and its staged variants) run as
 plain torch on the device.
 
 Primary entry point: :func:`project_forces`.
@@ -29,6 +30,10 @@ from .qp import (
     id_feat,
     gb_feat,
     Multifeaturize,
+    joptgauss_map,
+    stagedjoptgauss_map,
+    stagedjslicegauss_map,
+    stagedjforcegauss_map,
 )
 from .utils.funcs import Curry
 

@@ -139,11 +139,11 @@ class AugmentedTMap(TMap):
     def __call__(self, t: Trajectory) -> Trajectory:
         """Augment (fresh noise draw) then map.
 
-        When the augmenter and submaps support it (JCondNormal with linear
-        pre/post maps, SeperableTMap of LinearMaps, device input), the
+        When the augmenter and submaps support it (TCondNormal with linear
+        pre/post maps, SeperableTMap of LinearMaps, tensor input), the
         whole application — noising, coordinate map, force map, NaN
-        verdicts — runs as ONE device program with one host sync
-        (JCondNormal.fused_map_apply); otherwise the piecewise path runs.
+        verdicts — is enqueued on the device with one host sync
+        (TCondNormal.fused_map_apply); otherwise the piecewise path runs.
         """
         fused = getattr(self.augmenter, "fused_map_apply", None)
         if fused is not None and isinstance(self.tmap, SeperableTMap):

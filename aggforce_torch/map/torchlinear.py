@@ -95,13 +95,16 @@ class TLinearMap(LinearMap):
     def torch_standard_matrix(
         self, device: DeviceLike = None, dtype: torch.dtype = torch.float32
     ) -> torch.Tensor:
-        """standard_matrix as a tensor (memoized per device and dtype)."""
+        """standard_matrix as a contiguous tensor (memoized per device and
+        dtype). Contiguous whatever the numpy layout (a fitted map's matrix
+        may be a transposed view): cuBLAS picks its kernel, and so its
+        rounding, by the operand's layout, and equal maps must map alike."""
         dev = self.device if device is None else torch.device(device)
         key = (str(dev), dtype)
         if key not in self._matrices:
             self._matrices[key] = torch.as_tensor(
                 np.asarray(self.standard_matrix), dtype=dtype, device=dev
-            )
+            ).contiguous()
         return self._matrices[key]
 
     def _apply(self, points) -> Tuple[Union[np.ndarray, torch.Tensor], torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Force-map optimizers: uniform aggregation, the linear QP, the featurized fit."""
+"""Force-map optimizers: uniform aggregation, the linear QP, the featurized fit,
+the Gaussian noised maps."""
 # ruff: noqa: F401
 from .qplinear import (
     qp_linear_map,
@@ -26,3 +27,9 @@ from .fusedfeat import (
     fused_gb_linear_map_blocked,
 )
 from .cv import fused_gb_cv, fused_gb_cv_grid, linear_map_cv
+from .gauss import (
+    joptgauss_map,
+    stagedjoptgauss_map,
+    stagedjslicegauss_map,
+    stagedjforcegauss_map,
+)

@@ -60,6 +60,16 @@ def gaussian_dist_basis(
     return torch.clamp(gauss, min=clip) - clip
 
 
+def clipped_gauss(
+    inp: torch.Tensor, center, width: float = 1.0, clip: float = 1e-3
+) -> torch.Tensor:
+    """Gaussian of (inp - center)/width, floored at ``clip`` then shifted to 0."""
+    gauss = torch.exp(-(((inp - center) / width) ** 2))
+    if clip is None:
+        return gauss
+    return torch.clamp(gauss, min=clip) - clip
+
+
 def _channel_onehot(channels: Tuple[int, ...], n_channels: int, like) -> torch.Tensor:
     """(n_sites, n_channels) one-hot of each site's constraint-group channel."""
     idx = torch.as_tensor(channels, device=like.device)

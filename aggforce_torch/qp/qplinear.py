@@ -148,8 +148,8 @@ def _device_linear_fit(
     a_mat = _reduced(cmap_mat, labels, r)
     basis = torch.eye(a_mat.shape[0], dtype=forces.dtype, device=forces.device)
     x, resid = eqp_solve_auglag(gram, a_mat, basis, return_resid=True)
-    # re-expansion C @ x is a row gather
-    return x[labels].T, resid
+    # re-expansion C @ x is a row gather; row-major, as every map matrix
+    return x[labels].T.contiguous(), resid
 
 
 def _host_linear_fit(

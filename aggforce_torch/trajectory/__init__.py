@@ -1,4 +1,4 @@
-"""Trajectory containers and the augmenter contract."""
+"""Trajectory containers, the augmenter contract and the Gaussian augmenters."""
 # ruff: noqa: F401
 from .core import (
     ForcesTrajectory,
@@ -7,3 +7,4 @@ from .core import (
     AugmentedTrajectory,
 )
 from .augment import Augmenter
+from .gaussian import SimpleCondNormal, TCondNormal

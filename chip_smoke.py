@@ -77,7 +77,23 @@ fails:
    fp32 bound (over its unique entries), and the mapped forces of 4,096
    frames within 1e-5 relative RMS of a float64 witness built apart from
    the program's Gram and solver (the planted fault must not be);
-8. one JSON line listing every kernel; the last line is the result.
+8. config #2, the Gaussian noised maps (bench.py:711-781, nothing cut; run
+   between 7a and 7b), on phase 4's fixture as CUDA tensors, var 0.002,
+   which runs no hand-written kernel (both launch counts must read 0):
+   ``joptgauss_map`` (a first fit, five seeds, two applications that stay
+   on the card), ``stagedjoptgauss_map`` on its fused and piecewise paths,
+   ``stagedjforcegauss_map``, ``stagedjslicegauss_map`` and
+   ``project_forces(method=joptgauss_map)``. Gates: (1) |M F^T - I| <=
+   1e-4 and shared columns for the pairs; (2) mapped forces within 1e-5
+   relative RMS of a float64 witness solved apart from the program on the
+   same augmented arrays (a fit without constraints must miss it); (3) the
+   fused staged fit takes the draw of the piecewise one, and its maps and
+   mapped coordinates agree with them (2e-4, 2e-3, 1e-5); (4) the force
+   variant's noise contribution <= 1e-6; (5) MSCG projections of the two
+   optimized maps correlate above 0.9 and differ below 0.1 (a map with
+   M F^T = 1.5 I must fail); (6) with TF32 on, a fit reads the same bits;
+   (7) no Gram kernel launches. Then times, a profiled fit and peak memory;
+9. one JSON line listing every kernel; the last line is the result.
 
 The fixtures are the JAX bench's standalone geometry (bench.py:290-307),
 its CV and batch shapes (bench.py:783-820, 887-927),
@@ -91,6 +107,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 _T_START = time.perf_counter()
 
@@ -159,6 +176,22 @@ BATCH_WINDOWS, BATCH_WINDOW = 4, 64
 # a path's outputs with TF32 on for the process against TF32 off, largest
 # difference over largest entry: a TF32 product is good to ~1e-3
 TF32_REL_LIMIT = 1e-6
+# config #2, the Gaussian noised maps (bench.py:711-781): phase 4's fixture,
+# var 0.002. The augmented fit's mapped forces against a float64 witness,
+# relative RMS (the BASELINE.json north star); the fused staged fits against
+# the piecewise ones (tests/test_gaussmap.py:245-258): premap and second
+# stage maps within 2e-4 and 2e-3 of the largest entry, mapped coordinates
+# within 1e-5; the force variant's noise contribution (its own
+# contribution_tolerance); MSCG projections of two optimized maps
+# (tests/test_gaussmap.py:168-219): correlation and relative difference
+GAUSS_VAR = 0.002
+GAUSS_SEEDS = range(100, 105)
+GAUSS_REL_RMS_LIMIT = 1e-5
+STAGED_PRE_TOL, STAGED_POST_TOL, STAGED_COORD_TOL = 2e-4, 2e-3, 1e-5
+REMAINING_LIMIT = 1e-6
+MSCG_SAMPLES, MSCG_TIMED_SAMPLES = 200, 1_000
+MSCG_CORR_LIMIT, MSCG_REL_LIMIT = 0.9, 0.1
+MSCG_FIELDS = dict(inner=0.2, outer=1.2, width=0.5)
 
 
 def log(msg: str) -> None:
@@ -1434,6 +1467,319 @@ def sweep_witness(torch, np, forces, cmap, constraints):
     return torch.as_tensor(con_np @ x, device="cuda").T
 
 
+def gauss_witness(torch, np, forces, cmap, groups, seed):
+    """The float64 witness of a config-#2 fit, built apart from the program:
+    the noise draw replayed from a CUDA generator seeded like the augmenter
+    (``torch.randn`` of (T, S*3) float32), the augmented arrays in float64
+    by their formulas ([x | Mx + sd eps], [f + kbt M^T eps sd/var |
+    -kbt eps sd/var]), C from ``duplication_matrix``, a dense float64 Gram
+    on the card, and the equilibrated KKT system of [0 | I] F^T = I solved
+    by numpy. Returns (its (S, N + S) force map, the augmented forces), on
+    the card, float64."""
+    t, n = forces.shape[:2]
+    s = cmap.n_cg_sites
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    eps = torch.randn((t, s * 3), generator=gen, device="cuda", dtype=torch.float32)
+    resid = eps.double().reshape(t, s, 3) * (GAUSS_VAR**0.5 / GAUSS_VAR)
+    m = torch.as_tensor(cmap.standard_matrix, device="cuda")
+    ext_f = torch.cat(
+        [forces.double() + KBT * torch.einsum("sn,tsd->tnd", m, resid), -KBT * resid], dim=1
+    )
+    con_np = duplication_matrix(np, n + s, groups)
+    con = torch.as_tensor(con_np, device="cuda")
+    design = ext_f.permute(0, 2, 1).reshape(-1, n + s) @ con
+    p = (design.T @ design).cpu().numpy()
+    r = p.shape[0]
+    p = p / (np.trace(p) / r)
+    a = np.hstack([np.zeros((s, n)), np.eye(s)]) @ con_np
+    kkt = np.block([[p, a.T], [a, np.zeros((s, s))]])
+    x = np.linalg.solve(kkt, np.vstack([np.zeros((r, s)), np.eye(s)]))[:r]
+    cond = float(np.linalg.cond(p))
+    log(f"  float64 witness: R = {r} reduced columns of {n + s} augmented sites, "
+        f"condition number of the equilibrated Gram {cond:.3e}")
+    return torch.as_tensor(con_np @ x, device="cuda").T, ext_f
+
+
+def gauss_fit_gates(torch, np, tmap, fault, forces, cmap, groups, seed):
+    """Gates 1 and 2 of config #2 on a ``joptgauss_map`` fit with ``seed``:
+    orthogonality of the augmented map and shared columns for the pairs,
+    and its mapped forces against the float64 witness (the planted fault, a
+    fit without constraints, must miss it)."""
+    linear_map_gates(torch, np, tmap.tmap, tmap.tmap.coord_map, set(groups))
+    witness, ext_f = gauss_witness(torch, np, forces, cmap, groups, seed)
+    expect = torch.einsum("sn,tnd->tsd", witness, ext_f)
+    errs = {}
+    for name, tm in (("joptgauss_map fit (main path)", tmap),
+                     ("planted fault: constraints=set()", fault)):
+        fmat = torch.as_tensor(tm.tmap.force_map.standard_matrix, device="cuda").double()
+        errs[name] = rel_rms(torch, torch.einsum("sn,tnd->tsd", fmat, ext_f), expect)
+        log(f"  {name}: mapped augmented forces vs the float64 witness, rel RMS "
+            f"{errs[name]:.3e} (limit {GAUSS_REL_RMS_LIMIT:.0e})")
+    if not errs["joptgauss_map fit (main path)"] <= GAUSS_REL_RMS_LIMIT:
+        fail("config #2: the fit's mapped forces miss the float64 witness")
+    if not errs["planted fault: constraints=set()"] > GAUSS_REL_RMS_LIMIT:
+        fail("config #2: the witness gate does not reject the planted fault")
+
+
+def staged_gates(torch, np, traj, cmap, groups):
+    """Gate 3: ``stagedjoptgauss_map`` on its fused path and on its piecewise
+    path (AGGFORCE_STAGED_FUSED=0) with one seed: the same draw, the maps
+    within the JAX package's tolerances, the same mapped coordinates under
+    one seed; the fused path taken without a miss. Gate 4: the force
+    variant's noise contribution. Returns the fused map and the times."""
+    import os
+
+    from aggforce_torch.qp import stagedjforcegauss_map, stagedjoptgauss_map
+    from aggforce_torch.qp.qplinear import fit_routes
+    from aggforce_torch.trajectory import gaussian
+
+    kw = dict(var=GAUSS_VAR, kbt=KBT, constraints=set(groups), seed=11)
+    draws, real = [], gaussian._standard_normal
+
+    def recording(*args):
+        out = real(*args)
+        draws.append(out.clone())
+        return out
+
+    gaussian._standard_normal = recording
+    try:
+        fit_routes.clear()
+        fused = stagedjoptgauss_map(traj, cmap, **kw)
+        routes = dict(fit_routes)
+        os.environ["AGGFORCE_STAGED_FUSED"] = "0"
+        try:
+            piece = stagedjoptgauss_map(traj, cmap, **kw)
+        finally:
+            del os.environ["AGGFORCE_STAGED_FUSED"]
+    finally:
+        gaussian._standard_normal = real
+    log(f"config #2 staged: fused fit routes {routes} (must read staged_fused 1 and "
+        f"no staged_fused_missed)")
+    if routes.get("staged_fused") != 1 or "staged_fused_missed" in routes:
+        fail("config #2: the staged fit did not take its fused path")
+    same_draw = len(draws) == 2 and torch.equal(draws[0], draws[1])
+    log(f"  noise draws: {len(draws)} recorded, fused and piecewise identical: {same_draw}")
+    if not same_draw:
+        fail("config #2: the fused and piecewise staged fits drew different noise")
+
+    def scaled(got, ref):
+        got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    cf, ff = fused.map_arrays(traj.coords, traj.forces)
+    cp, fp = piece.map_arrays(traj.coords, traj.forces)
+    checks = {
+        "premap force map": (scaled(fused[1].force_map.standard_matrix,
+                                    piece[1].force_map.standard_matrix), STAGED_PRE_TOL),
+        "second-stage force map": (scaled(fused[0].tmap.force_map.standard_matrix,
+                                          piece[0].tmap.force_map.standard_matrix),
+                                   STAGED_POST_TOL),
+        "mapped coordinates (abs)": (float((cf - cp).abs().max()), STAGED_COORD_TOL),
+        "mapped forces": (scaled(ff, fp), STAGED_POST_TOL),
+    }
+    for name, (err, lim) in checks.items():
+        log(f"  fused vs piecewise {name}: {err:.3e} (limit {lim:.0e}; of the "
+            f"largest entry unless abs)")
+        if not err <= lim:
+            fail(f"config #2: fused and piecewise staged fits differ in the {name}")
+    if cf.device.type != "cuda":
+        fail("config #2: the staged map's output left the card")
+
+    force_map = stagedjforcegauss_map(traj, cmap, **kw)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stagedjforcegauss_map(traj, cmap, contribution_tolerance=-1.0, **kw)
+    remaining = float(str(caught[-1].message).rsplit(" ", 1)[1].rstrip("."))
+    pre_f = force_map[1](traj).forces
+    drift = float((force_map(traj).forces - pre_f).abs().max() / pre_f.std())
+    log(f"config #2 force variant: remaining noise contribution {remaining:.3e} "
+        f"(limit {REMAINING_LIMIT:.0e}); its mapped forces off the premap's by "
+        f"{drift:.3e} of their standard deviation")
+    if not 0.0 <= remaining <= REMAINING_LIMIT:
+        fail("config #2: the force variant leaves a noise contribution")
+
+    def timed(env):
+        out = []
+        for _ in range(3):
+            if env:
+                os.environ["AGGFORCE_STAGED_FUSED"] = "0"
+            try:
+                t0 = time.perf_counter()
+                stagedjoptgauss_map(traj, cmap, **kw)
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            finally:
+                os.environ.pop("AGGFORCE_STAGED_FUSED", None)
+        return out
+
+    times = {"fused": timed(False), "piecewise": timed(True)}
+    for name, ts in times.items():
+        log(f"config #2 stagedjoptgauss_map {name}: {', '.join(f'{x:.4f}' for x in ts)} s "
+            f"-> min {min(ts):.4f} s, {traj.coords.shape[0] / min(ts):.1f} frames/s")
+    return fused, times
+
+
+def mscg_gate(torch, np, jopt, staged, traj, cmap, groups):
+    """Gate 5: MSCG projections of ``joptgauss_map``'s and
+    ``stagedjoptgauss_map``'s mapped data (one application of each to the
+    whole trajectory) onto MSCG_SAMPLES random fields: correlation above
+    MSCG_CORR_LIMIT and relative difference of the means below
+    MSCG_REL_LIMIT. The negative control, the joptgauss forces scaled by 1.5
+    (a map with M F^T = 1.5 I), must fail. A second control is printed, not
+    gated: noised coordinates with the noise-free linear map's forces (the
+    noise correction left out). Returns the seconds of one projection at
+    MSCG_TIMED_SAMPLES."""
+    from aggforce_torch.mapval import random_force_proj
+    from aggforce_torch.qp import qp_linear_map
+
+    ca, fa = jopt.map_arrays(traj.coords, traj.forces)
+    cb, fb = staged.map_arrays(traj.coords, traj.forces)
+    _, f_lin = qp_linear_map(traj, cmap, constraints=set(groups)).map_arrays(
+        traj.coords, traj.forces
+    )
+
+    def proj(c, f, n=MSCG_SAMPLES):
+        return np.array(random_force_proj(
+            c, f, n_samples=n, randg=np.random.default_rng(1234), average=False,
+            **MSCG_FIELDS,
+        ))
+
+    def stats(pa, pb):
+        corr = float(np.corrcoef(pa, pb)[0, 1])
+        return corr, float(abs(pa.mean() - pb.mean()) / (abs(pa.mean()) + 1e-12))
+
+    pa, pb = proj(ca, fa), proj(cb, fb)
+    corr, rel = stats(pa, pb)
+    c_corr, c_rel = stats(proj(ca, 1.5 * fa), pb)
+    u_corr, u_rel = stats(proj(ca, f_lin), pb)
+    log(f"config #2 MSCG ({MSCG_SAMPLES} random fields, {traj.coords.shape[0]} frames): "
+        f"joptgauss vs stagedjoptgauss correlation {corr:.4f} (limit > {MSCG_CORR_LIMIT}), "
+        f"relative difference {rel:.4f} (limit < {MSCG_REL_LIMIT}); negative control "
+        f"(joptgauss forces x 1.5, M F^T = 1.5 I): correlation {c_corr:.4f}, relative "
+        f"difference {c_rel:.4f} (must fail); not gated, noised coordinates with the "
+        f"noise-free linear map's forces: correlation {u_corr:.4f}, relative "
+        f"difference {u_rel:.4f}")
+    if not (corr > MSCG_CORR_LIMIT and rel < MSCG_REL_LIMIT):
+        fail("config #2: the two optimized maps disagree on MSCG projections")
+    if c_corr > MSCG_CORR_LIMIT and c_rel < MSCG_REL_LIMIT:
+        fail("config #2: the MSCG check does not reject its negative control")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proj(ca, fa, MSCG_TIMED_SAMPLES)
+    return time.perf_counter() - t0
+
+
+def phase_gauss_config2(torch, np, coords_np, forces_np, cmap, groups, smi):
+    """Config #2 (bench.py:711-781) on phase 4's fixture, nothing cut: the
+    Gaussian noised maps on CUDA tensors, gates 1-7, and their times."""
+    import aggforce_torch
+    from aggforce_torch import Trajectory, joptgauss_map, stagedjslicegauss_map
+    from aggforce_torch.trajectory import CoordsTrajectory
+
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    traj = Trajectory(coords=coords, forces=forces)
+    n_frames = coords.shape[0]
+    constraints = set(groups)
+
+    def fit(seed, c=constraints):
+        return joptgauss_map(traj, cmap, var=GAUSS_VAR, kbt=KBT, constraints=c, seed=seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fit(7)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fit_s = []
+    for seed in GAUSS_SEEDS:
+        t0 = time.perf_counter()
+        tmap = fit(seed)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+    fit_min, fit_med = min(fit_s), float(np.median(fit_s))
+    log(f"config #2 joptgauss_map ({n_frames} frames, {cmap.n_fg_sites} atoms, "
+        f"S = {cmap.n_cg_sites}, var {GAUSS_VAR}): first {first_s:.4f} s; seeds "
+        f"{GAUSS_SEEDS[0]}-{GAUSS_SEEDS[-1]}: {', '.join(f'{x:.4f}' for x in fit_s)} s -> "
+        f"min {fit_min:.4f} s, median {fit_med:.4f} s, {n_frames / fit_min:.1f} "
+        f"frames/s (min), {n_frames / fit_med:.1f} frames/s (median) ({smi})")
+    apply_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = tmap(traj)
+        torch.cuda.synchronize()
+        apply_s.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(out.forces).all())
+    log(f"config #2 apply: first {apply_s[0]:.4f} s, second {apply_s[1]:.4f} s "
+        f"({n_frames / apply_s[1]:.1f} frames/s); output on {out.forces.device}, "
+        f"{tuple(out.forces.shape)}, finite {finite}")
+    if out.forces.device.type != "cuda" or out.coords.device.type != "cuda":
+        fail("config #2: the applied map's output left the card")
+    if out.forces.shape != (n_frames, cmap.n_cg_sites, 3) or not finite:
+        fail("config #2: the applied map's forces are misshapen or not finite")
+
+    log("config #2 gates 1-2 (orthogonality, float64 witness):")
+    gauss_fit_gates(
+        torch, np, tmap, fit(GAUSS_SEEDS[-1], set()), forces, cmap, groups,
+        GAUSS_SEEDS[-1],
+    )
+    staged, staged_times = staged_gates(torch, np, traj, cmap, groups)
+
+    slice_map = stagedjslicegauss_map(
+        CoordsTrajectory(coords=coords), cmap, var=GAUSS_VAR, kbt=KBT, seed=8,
+        warn_input_forces=False,
+    )
+    sc, sf = slice_map.map_arrays(coords, None)
+    m = torch.as_tensor(cmap.standard_matrix, dtype=torch.float32, device="cuda")
+    expect = -KBT * (sc - torch.einsum("sn,tnd->tsd", m, coords)) / GAUSS_VAR
+    slice_err = float((sf - expect).abs().max() / expect.abs().max())
+    log(f"config #2 stagedjslicegauss_map: forces on {sf.device}, off -kbt (y - Mx)/var "
+        f"by {slice_err:.3e} of the largest entry (limit 1e-3)")
+    if sf.device.type != "cuda" or not slice_err <= 1e-3:
+        fail("config #2: the slice map's forces are not the noise forces")
+
+    res = aggforce_torch.project_forces(
+        coords, forces, cmap, method=joptgauss_map, var=GAUSS_VAR, kbt=KBT, seed=3
+    )
+    log(f"config #2 project_forces(method=joptgauss_map): {len(res['constraints'])} "
+        f"pairs detected (equal: {res['constraints'] == constraints}), mapped forces "
+        f"on {res['mapped_forces'].device}, residual {res['residual']:.6g}")
+    if res["constraints"] != constraints or res["mapped_forces"].device.type != "cuda":
+        fail("config #2: project_forces(method=joptgauss_map) missed the pairs or the card")
+
+    proj_s = mscg_gate(torch, np, tmap, staged, traj, cmap, groups)
+    log(f"config #2 random_force_proj at n_samples = {MSCG_TIMED_SAMPLES}: {proj_s:.4f} s "
+        f"({smi})")
+
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        on = fit(GAUSS_SEEDS[0]).tmap.force_map.standard_matrix
+        still_on = matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = False
+    off = fit(GAUSS_SEEDS[0]).tmap.force_map.standard_matrix
+    same = bool(np.array_equal(on, off))
+    log(f"config #2 with TF32 on: the fit reads the bits of the fit with TF32 off: "
+        f"{same}; switch still on afterwards: {still_on}")
+    if not same or not still_on:
+        fail("config #2: with TF32 on, the fit moved or the switch was reset")
+
+    wall_s, busy_s, kinds = fit_breakdown(
+        torch, lambda: fit(GAUSS_SEEDS[0]), fit_med, top=10, kind_of=linear_kind
+    )
+    peak = torch.cuda.max_memory_allocated()
+    read_counts("config #2, every Gaussian path")
+    log(f"config #2: peak device memory {peak / 2**20:.1f} MiB; profiled fit "
+        f"{busy_s / wall_s:.1%} busy ({smi})")
+    return {
+        "first_s": first_s, "fit_min_s": fit_min, "fit_med_s": fit_med,
+        "apply_s": apply_s, "staged_s": staged_times, "proj_s": proj_s,
+    }
+
+
 def phase_linear_sweep(torch, np, smi):
     """The linear sweep end to end: detection on 256 frames and two
     qp_linear_map fits at full width, a profiled fit, the Gram against its
@@ -2087,6 +2433,7 @@ def main() -> int:
         f"({smi})")
     tiled_launches, tiled_err, tiled_times = phase_sweep(torch, np, smi)
     phase_linear_config1(torch, np, coords, forces, cmap, groups, spec, smi)
+    phase_gauss_config2(torch, np, coords, forces, cmap, groups, smi)
     phase_linear_sweep(torch, np, smi)
     kernels = [
         {
@@ -2100,6 +2447,7 @@ def main() -> int:
                 "config #4 CV (fused_gb_cv)": cv_launches,
                 "featurized grid (project_forces_grid_cv)": grid_launches,
                 "batch fits (fused_gb_linear_map_batch)": batch_launches,
+                "config #2 (Gaussian maps)": 0,
             },
             "max_abs_err": max_err,
             **times,
@@ -2111,6 +2459,10 @@ def main() -> int:
             "source": "aggforce_torch/csrc/site_grams_tiled.cu",
             "replaces": "aggforce_tpu/ops/pallas_gram.py:313",
             "launches": tiled_launches,
+            "launches_by_path": {
+                "sweep fit (fused_gb_linear_map_blocked)": tiled_launches,
+                "config #2 (Gaussian maps)": 0,
+            },
             "max_abs_err": tiled_err,
             **tiled_times,
         },

@@ -22,7 +22,9 @@ def test_import_pulls_in_no_jax():
         "aggforce_torch.constraints.finder, aggforce_torch.qp.qplinear, "
         "aggforce_torch.qp.basicagg, aggforce_torch.qp.cv, "
         "aggforce_torch.native, aggforce_torch.utils.pdblite, "
-        "aggforce_torch.ops.eqp, aggforce_torch.ops.torchcore, aggforce_torch.agg\n"
+        "aggforce_torch.ops.eqp, aggforce_torch.ops.torchcore, aggforce_torch.agg, "
+        "aggforce_torch.trajectory.gaussian, aggforce_torch.qp.gauss, "
+        "aggforce_torch.qp.gauss_fused, aggforce_torch.mapval, aggforce_torch.models\n"
         "bad = [m for m in sys.modules if m in ('jax', 'aggforce_tpu') "
         "or m.startswith(('jax.', 'aggforce_tpu.'))]\n"
         "print(bad)\n"
@@ -189,12 +191,72 @@ def _linear_map_carry():
     separable_map_from_numpy(np.eye(2, 6), np.eye(2, 6))
 
 
+def _traj():
+    from aggforce_torch import Trajectory
+
+    coords, forces, cmap = _fixture()
+    return Trajectory(coords=coords, forces=forces), cmap
+
+
+def _gauss_fit():
+    from aggforce_torch import joptgauss_map
+
+    joptgauss_map(*_traj(), var=0.002, kbt=0.7, seed=1)
+
+
+def _staged_gauss_fit():
+    from aggforce_torch import stagedjoptgauss_map
+
+    stagedjoptgauss_map(*_traj(), var=0.002, kbt=0.7, seed=1)
+
+
+def _slice_gauss_map():
+    from aggforce_torch import stagedjslicegauss_map
+    from aggforce_torch.trajectory import CoordsTrajectory
+
+    coords, _, cmap = _fixture()
+    stagedjslicegauss_map(CoordsTrajectory(coords=coords), cmap, var=0.002, kbt=0.7)
+
+
+def _force_gauss_fit():
+    from aggforce_torch import stagedjforcegauss_map
+
+    stagedjforcegauss_map(*_traj(), var=0.002, kbt=0.7, seed=1)
+
+
+def _gauss_project_forces():
+    from aggforce_torch import joptgauss_map, project_forces
+
+    coords, forces, cmap = _fixture()
+    project_forces(coords, forces, cmap, method=joptgauss_map, var=0.002, kbt=0.7)
+
+
+def _augmenter():
+    from aggforce_torch.trajectory import TCondNormal
+
+    TCondNormal(cov=0.002)
+
+
+def _gauss_map_carry():
+    from aggforce_torch.convert import gauss_map_from_numpy
+
+    gauss_map_from_numpy(np.eye(2, 8), np.eye(2, 8), 0.002, 0.7, premap_mat=np.eye(2, 6))
+
+
+def _map_validation():
+    from aggforce_torch.mapval import random_force_proj
+
+    coords, forces, _ = _fixture()
+    random_force_proj(coords, forces, n_samples=2)
+
+
 @pytest.mark.parametrize(
     "entry",
     [_project_forces, _fused_fit, _blocked_fit, _tlinear_map, _map_carry, _gb_feat,
      _project_forces_defaults, _linear_fit, _finder, _fold_probe, _linear_cv,
      _device_synthesis, _linear_map_carry, _featurized_cv, _featurized_grid_cv,
-     _batch_fits],
+     _batch_fits, _gauss_fit, _staged_gauss_fit, _slice_gauss_map, _force_gauss_fit,
+     _gauss_project_forces, _augmenter, _gauss_map_carry, _map_validation],
     ids=lambda f: f.__name__.strip("_"),
 )
 def test_entry_points_need_cuda_unless_told(monkeypatch, entry):

@@ -1,5 +1,6 @@
 """Full float32 under a process-wide TF32 switch: every product of the
-featurized paths and of the map applications runs with TF32 off (the JAX
+featurized paths, the Gaussian maps, the map validation and of the map
+applications runs with TF32 off (the JAX
 package's ``precision="highest"``), whichever of torch's two switches the
 process used, and the switch is back afterwards."""
 
@@ -117,6 +118,49 @@ def _fused_map(coords, forces, fitted={}):
     ])
 
 
+def _gauss_traj(coords, forces):
+    return pt.Trajectory(coords=torch.as_tensor(coords), forces=torch.as_tensor(forces))
+
+
+def _gauss_fit(coords, forces):
+    tmap = pt.joptgauss_map(
+        _gauss_traj(coords, forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
+        var=0.002, kbt=KBT, constraints=GROUPS, seed=5,
+    )
+    return torch.as_tensor(tmap.tmap.force_map.standard_matrix)
+
+
+def _staged_gauss(coords, forces):
+    tmap = pt.stagedjoptgauss_map(
+        _gauss_traj(coords, forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
+        var=0.002, kbt=KBT, constraints=GROUPS, seed=6,
+    )
+    return tuple(
+        torch.as_tensor(m.standard_matrix) for m in (tmap[1].force_map, tmap[0].tmap.force_map)
+    )
+
+
+def _gauss_apply(coords, forces, fitted={}):
+    traj = _gauss_traj(coords, forces)
+    if "map" not in fitted:
+        fitted["map"] = pt.joptgauss_map(
+            traj, pt.LinearMap(SITES, n_fg_sites=N_ATOMS), var=0.002, kbt=KBT,
+            constraints=GROUPS, seed=7,
+        )
+    fitted["map"].augmenter._gens.clear()  # the same draw on every call
+    out = fitted["map"](traj)
+    return out.coords, out.forces
+
+
+def _map_validation(coords, forces):
+    from aggforce_torch import mapval
+
+    return torch.tensor(mapval.random_force_proj(
+        coords, forces, n_samples=5, randg=np.random.default_rng(1), average=False,
+        device="cpu", inner=0.2, outer=1.2, width=0.5,
+    ))
+
+
 PATHS = {
     "pack_operands": _pack,
     "featurized fit": lambda c, f: _fit(c, f).force_map._coefs,
@@ -125,6 +169,10 @@ PATHS = {
     "batch fits": _batch_fits,
     "trjdot": _trjdot,
     "FusedGBMap": _fused_map,
+    "Gaussian fit": _gauss_fit,
+    "staged Gaussian fit": _staged_gauss,
+    "Gaussian map application": _gauss_apply,
+    "map validation": _map_validation,
 }
 
 
