@@ -13,7 +13,9 @@ the sweep-scale site-blocked fit (``qp.fused_gb_linear_map_blocked``) runs
 a second one (``csrc/site_grams_tiled.cu``). The static linear map
 (``qp_linear_map``, the default method), the constraint finder and the
 Gaussian noised maps (``joptgauss_map`` and its staged variants) run as
-plain torch on the device.
+plain torch on the device. Trajectories larger than the card stream from
+disk (:mod:`aggforce_torch.io`), and fitted maps persist in the JAX
+package's format (:mod:`aggforce_torch.utils.serialize`).
 
 Primary entry point: :func:`project_forces`.
 """

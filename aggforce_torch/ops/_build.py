@@ -5,7 +5,9 @@ Each source under ``aggforce_torch/csrc/`` is compiled by ``nvcc`` for
 use, and loaded with ``ctypes``. The libraries go to ``aggforce_torch/_build/``
 under a file name keyed by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a stale library is never loaded. All
-sources are compiled in parallel, one ``nvcc`` process each.
+sources are compiled in parallel, one ``nvcc`` process each, under a lock:
+a warm-up thread and the main thread that both need the kernels start one
+``nvcc`` per source between them.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -39,6 +42,9 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+
+# held while build_all() checks for and compiles the libraries
+_BUILD_LOCK = threading.Lock()
 
 # seconds the last build_all() spent compiling (0.0 when every library was
 # already built), and what ptxas reported per source
@@ -81,8 +87,14 @@ def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, all in parallel.
 
     Returns {source: library path}. Raises RuntimeError with the compiler's
-    output when a build fails.
+    output when a build fails. Calls from several threads take turns, so a
+    second caller finds the first one's libraries built.
     """
+    with _BUILD_LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {src: library_path(src) for src in SOURCES}
     todo = {src: lib for src, lib in targets.items() if not lib.exists()}

@@ -32,6 +32,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.debug import check_finite
 from ..utils.device import full_fp32
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
@@ -232,7 +233,8 @@ def site_grams(
     """All-site featurized Grams: returns (S, K_pad, K_pad) float32.
 
     CUDA tensors go to the hand-written kernel (``csrc/site_grams.cu``),
-    built on first use; each launch adds one to ``site_grams.launches``. CPU
+    built on first use; each launch adds one to ``site_grams.launches``, and
+    in debug mode (``utils.debug``) its output is checked for NaN. CPU
     tensors go to :func:`site_grams_plain`. Any T is taken; G_pad must be a
     multiple of 16, and every operand float32, contiguous and on one device.
     """
@@ -248,6 +250,8 @@ def site_grams(
         raise ValueError(f"site_grams runs on CUDA or CPU, not {gpos.device}")
     out = _launch(False, *args)
     site_grams.launches += 1
+    # the kernel bypasses torch's dispatch, so debug mode checks it here
+    check_finite("site_grams", out)
     return out
 
 
@@ -351,6 +355,7 @@ def site_grams_tiled_blocks(
         raise ValueError(f"site_grams_tiled runs on CUDA or CPU, not {gpos.device}")
     out = _launch(True, *args)
     site_grams_tiled.launches += 1
+    check_finite("site_grams_tiled", out)
     return out
 
 

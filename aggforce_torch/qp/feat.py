@@ -6,16 +6,23 @@ Gaussian bins of its distance to a cg site, constrained atoms smeared
 together and sharing one-hot channels; divergences of the collapsed
 features w.r.t. the fg coordinates with the cg points held fixed).
 
-Divergences are closed-form (``div_method="closed"``): for s = smear(x),
-d_j = |s_j - c| and basis phi_k,
+Divergences default to the closed form (``div_method="closed"``): for
+s = smear(x), d_j = |s_j - c| and basis phi_k,
 
     div[t, (g,k), a] = sum_j phi_k'(d_tj) * u_tja * SC[j, g],
     u = (s - c)/d,   SC[j, g] = sum_{m: channel(m)=g} S[j, m]
+
+The reference's autodiff methods are kept as cross-checks: "reorder"
+(``torch.func.jacrev`` of the frame-collapsed basis values, channels
+allocated after) and "basic" (``torch.func.jacfwd`` of the collapsed,
+channelized features). Like the reference, both give NaN where a fine-grained
+atom sits on its cg point (the derivative of |s - c| at 0).
 
 The fused fit recognizes this module's :func:`gb_feat` by identity and
 never calls it; it is the protocol featurizer for other consumers.
 """
 
+from functools import partial
 from typing import Final, Iterable, Tuple, Union
 
 import numpy as np
@@ -27,6 +34,8 @@ from ..ops.torchcore import abatch, distances, trjdot
 from ..utils.device import DeviceLike, resolve_device
 from .featlinearmap import Features, KNAME_DIVS, KNAME_FEATS, KNAME_NAMES, id_feat
 
+DIVMETHOD_REORDER: Final = "reorder"
+DIVMETHOD_BASIC: Final = "basic"
 DIVMETHOD_CLOSED: Final = "closed"
 
 
@@ -77,15 +86,24 @@ def _channel_onehot(channels: Tuple[int, ...], n_channels: int, like) -> torch.T
 
 
 def channel_allocate(
-    feats: torch.Tensor, channels: Tuple[int, ...], max_channels: int
+    feats: torch.Tensor,
+    channels: Tuple[int, ...],
+    max_channels: int,
+    jac_shape: bool = False,
 ) -> torch.Tensor:
     """Distribute per-site features into per-channel one-hot slots.
 
     (n_frames, n_sites, K) -> (n_frames, n_sites, K*C) with site j's
-    features landing in slot block ``channel(j)``.
+    features landing in slot block ``channel(j)``. ``jac_shape`` takes the
+    (K, n_frames, n_sites, n_dim) jacobian layout instead, allocating along
+    the derivative-site axis: -> (K*C, n_frames, n_sites, n_dim).
     """
     n_channels = max_channels + 1
     onehot = _channel_onehot(channels, n_channels, feats)
+    if jac_shape:
+        k, t, j, d = feats.shape
+        out = torch.einsum("ktjd,jc->cktjd", feats, onehot)
+        return out.reshape(n_channels * k, t, j, d)
     t, j, k = feats.shape
     out = torch.einsum("tjk,jc->tjck", feats, onehot)
     return out.reshape(t, j, n_channels * k)
@@ -97,14 +115,28 @@ def gb_subfeat(
     channels: Tuple[int, ...],
     max_channels: int,
     smear_mat: Union[None, torch.Tensor],
+    collapse: bool = False,
+    channelize: bool = True,
     **kwargs,
 ) -> torch.Tensor:
-    """Features for one cg site: smear -> distances -> basis -> channels."""
+    """Features for one cg site: smear -> distances -> basis -> channels.
+
+    ``collapse`` sums over frames and sites (for the autodiff divergence
+    methods); 2-D ``points`` get a dummy frame axis.
+    """
+    dummy_axis = points.ndim == 2
+    if dummy_axis:
+        points = points[None, ...]
     if smear_mat is not None:
         points = trjdot(points, smear_mat)
     dists = distances(xyz=points, cross_xyz=cg_points)
     gauss = gaussian_dist_basis(dists, **kwargs)[:, 0, :, :]
-    return channel_allocate(gauss, channels, max_channels)
+    out = channel_allocate(gauss, channels, max_channels) if channelize else gauss
+    if collapse:
+        return out.sum(dim=(0, 1))
+    if dummy_axis:
+        return out[0, ...]
+    return out
 
 
 def _gb_closed_div(
@@ -142,6 +174,56 @@ def _gb_closed_div(
     return div.reshape(div.shape[0], n_channels * n_basis, 3)
 
 
+def gb_subfeat_jac(
+    points: torch.Tensor,
+    cg_points: torch.Tensor,
+    channels: Tuple[int, ...],
+    max_channels: int,
+    smear_mat: Union[torch.Tensor, None] = None,
+    method: str = DIVMETHOD_CLOSED,
+    **kwargs,
+) -> torch.Tensor:
+    """Per-frame divergences of the collapsed features for one cg site,
+    (n_frames, n_basis*(max_channels+1), n_dim).
+
+    ``method`` selects "closed" (the analytic form, default), "reorder"
+    (``torch.func.jacrev`` before channel allocation: one reverse pass per
+    basis function) or "basic" (``torch.func.jacfwd`` of the fully
+    channelized features: one forward pass per coordinate of ``points``, so
+    callers batch over few frames). All agree where every atom is off its
+    cg point; the autodiff methods are cross-checks of the analytic one.
+    """
+    if method == DIVMETHOD_CLOSED:
+        return _gb_closed_div(
+            points, cg_points, channels=channels, max_channels=max_channels,
+            smear_mat=smear_mat, **kwargs,
+        )
+    if method == DIVMETHOD_BASIC:
+
+        def to_jac(x: torch.Tensor) -> torch.Tensor:
+            return gb_subfeat(
+                x, cg_points=cg_points, channels=channels,
+                max_channels=max_channels, smear_mat=smear_mat, collapse=True,
+                **kwargs,
+            )
+
+        jac = torch.func.jacfwd(to_jac)(points)  # (K_exp, T, N, 3)
+        return jac.sum(dim=2).transpose(0, 1)
+    if method == DIVMETHOD_REORDER:
+
+        def to_jac_flat(x: torch.Tensor) -> torch.Tensor:
+            return gb_subfeat(
+                x, cg_points=cg_points, channels=channels,
+                max_channels=max_channels, smear_mat=smear_mat, collapse=True,
+                channelize=False, **kwargs,
+            )
+
+        jac = torch.func.jacrev(to_jac_flat)(points)  # (K, T, N, 3)
+        ch_jac = channel_allocate(jac, channels, max_channels, jac_shape=True)
+        return ch_jac.sum(dim=2).transpose(0, 1)
+    raise ValueError("Unknown method for jacobian calculation.")
+
+
 def gb_feat(
     points: np.ndarray,
     cmap: LinearMap,
@@ -161,17 +243,12 @@ def gb_feat(
     Protocol-compatible featurizer: returns per-cg-site generators (or lists
     with ``lazy=False``) of numpy feature arrays
     (n_frames, n_fg_sites, n_basis*(max_channel+1)) and divergence arrays
-    (n_frames, n_feats, 3), computed on ``device`` (default: the GPU).
+    (n_frames, n_feats, 3), computed on ``device`` (default: the GPU) over
+    frame batches of ``batch_size`` (all frames at once when None).
     Constrained atoms are smeared to their group mean and share channels, so
-    their features (and hence mapping weights) coincide. Only the
-    closed-form divergence is ported; the JAX package's autodiff
-    cross-checks ("reorder", "basic") wait for ROADMAP Queue 1 item 4.
+    their features (and hence mapping weights) coincide. ``div_method`` is
+    the divergence of :func:`gb_subfeat_jac`.
     """
-    if div_method != DIVMETHOD_CLOSED:
-        raise NotImplementedError(
-            f"div_method={div_method!r} is not ported (ROADMAP Queue 1 item 4); "
-            f"use {DIVMETHOD_CLOSED!r}"
-        )
     dev = resolve_device(device, points)
     points_dev = torch.as_tensor(points, dtype=torch.float32, device=dev)
     cg_points_all = torch.as_tensor(
@@ -213,7 +290,7 @@ def gb_feat(
         return per_site(gb_subfeat, cg_site)
 
     def divver(cg_site: int) -> np.ndarray:
-        return per_site(_gb_closed_div, cg_site)
+        return per_site(partial(gb_subfeat_jac, method=div_method), cg_site)
 
     if lazy:
         feats: Iterable = (feater(x) for x in range(cmap.n_cg_sites))

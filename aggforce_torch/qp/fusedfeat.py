@@ -52,6 +52,10 @@ from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
 from .featlinearmap import id_feat
 
+# the shared-factor KKT solve's defaults (ridge delta, refinement sweeps)
+SOLVER_DELTA = 1e-6
+SOLVER_ITERS = 40
+
 
 @dataclass(frozen=True)
 class GBFeatSpec:
@@ -312,13 +316,27 @@ def _fit_coefs(
         counts, centers, kbt, l2_regularization, spec, gram_fn, tiled,
         cmap_rows, site_sel,
     )
-    # the same shared-factor solver the batch path uses (with a fit-batch
-    # of one), so single fits and batched fits agree per problem
+    coefs, resids = _solve_parts(gram, a_rows, b, solver_delta, solver_iters)
+    return coefs, resids, gram, a_rows, b
+
+
+def _solve_parts(
+    gram: torch.Tensor,  # (S, K_exp, K_exp), l2 term included
+    a_rows: torch.Tensor,  # (S, m, K_exp)
+    b: torch.Tensor,  # (S, m)
+    solver_delta: float = SOLVER_DELTA,
+    solver_iters: int = SOLVER_ITERS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fit's KKT solve: (coefs (S, K_exp), per-site residuals (S,)).
+
+    The same shared-factor solver the batch path uses (with a fit batch of
+    one), so single, streamed and batched fits agree per problem.
+    """
     coefs, resids = batched_eqp_solve_shared(
         gram, a_rows[None], b[None, ..., None], delta=solver_delta,
         iters=solver_iters, return_resid=True,
     )
-    return coefs[0, ..., 0], resids[0], gram, a_rows, b
+    return coefs[0, ..., 0], resids[0]
 
 
 @full_fp32()
@@ -714,8 +732,8 @@ def fused_gb_linear_map(
     l2_regularization: float = 1e1,
     chunk_size: int = 2048,
     constraint_rng: Optional[np.random.Generator] = None,
-    solver_delta: float = 1e-6,
-    solver_iters: int = 40,
+    solver_delta: float = SOLVER_DELTA,
+    solver_iters: int = SOLVER_ITERS,
     resid_tol: float = 1e-4,
     mesh=None,
     use_kernel: Union[bool, str] = "auto",
@@ -775,8 +793,8 @@ def fused_gb_linear_map_blocked(
     l2_regularization: float = 1e1,
     chunk_size: int = 2048,
     constraint_rng: Optional[np.random.Generator] = None,
-    solver_delta: float = 1e-6,
-    solver_iters: int = 40,
+    solver_delta: float = SOLVER_DELTA,
+    solver_iters: int = SOLVER_ITERS,
     resid_tol: float = 1e-4,
     site_block: int = 2,
     use_kernel: Union[bool, str] = "auto",
@@ -1092,8 +1110,8 @@ def fused_gb_linear_map_batch(
     n_constraint_frames: int = 20,
     l2_regularization: float = 1e1,
     chunk_size: int = 2048,
-    solver_delta: float = 1e-6,
-    solver_iters: int = 40,
+    solver_delta: float = SOLVER_DELTA,
+    solver_iters: int = SOLVER_ITERS,
     resid_tol: float = 1e-4,
     use_kernel: Union[bool, str] = "auto",
     flush_every: int = 16,

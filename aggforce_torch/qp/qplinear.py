@@ -35,6 +35,10 @@ from ..utils.device import DeviceLike, full_fp32, resolve_device
 # sweep width (3,000 atoms)
 FRAME_BLOCK = 4096
 
+# refinement sweeps of the float32 device solves of the featurized protocol
+# path (``qp_feat_linear_map`` with a generic featurizer)
+DEVICE_REFINE_ITERS = 40
+
 # fits per route since the last clear(): "device", "host", "native", and
 # "escalated" (device fits redone by the float64 host fit);
 # ``linear_map_cv`` adds "cv_escalated_cells", the (l2, fold) cells it
@@ -141,12 +145,27 @@ def _device_linear_fit(
     TF32 setting. Returns the (n_cg, N) force-map matrix and the solver's
     constraint-violation diagnostic.
     """
-    gram = _linear_gram(forces, labels, r)
+    return _solve_linear_gram(
+        _linear_gram(forces, labels, r), labels, cmap_mat, l2_regularization, r
+    )
+
+
+@full_fp32()
+def _solve_linear_gram(
+    gram: torch.Tensor,
+    labels: torch.Tensor,
+    cmap_mat: torch.Tensor,
+    l2_regularization: float,
+    r: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device fit's solve from its (R, R) force Gram: the l2 term, the
+    constraint matrix, the multi-RHS solve and the re-expansion (also the
+    finish of the streamed fit). Returns (map matrix, solver diagnostic)."""
     # C^T C is diagonal with the per-column member counts
-    counts = torch.bincount(labels, minlength=r).to(forces.dtype)
+    counts = torch.bincount(labels, minlength=r).to(gram.dtype)
     gram = gram + l2_regularization * torch.diag(counts)
     a_mat = _reduced(cmap_mat, labels, r)
-    basis = torch.eye(a_mat.shape[0], dtype=forces.dtype, device=forces.device)
+    basis = torch.eye(a_mat.shape[0], dtype=gram.dtype, device=gram.device)
     x, resid = eqp_solve_auglag(gram, a_mat, basis, return_resid=True)
     # re-expansion C @ x is a row gather; row-major, as every map matrix
     return x[labels].T.contiguous(), resid
@@ -163,8 +182,29 @@ def _host_linear_fit(
 ) -> np.ndarray:
     """Float64 host twin of :func:`_device_linear_fit`; ``solve`` is the KKT
     solver (LAPACK, or the native library's)."""
+    return _host_linear_fit_from_gram(
+        _host_linear_gram(forces, con_mat), con_mat, cmap_mat, l2_regularization,
+        delta, refine_iters, solve,
+    )
+
+
+def _host_linear_gram(forces: np.ndarray, con_mat: np.ndarray) -> np.ndarray:
+    """Float64 (R, R) Gram (F C)^T (F C) of (T, N, 3) forces on the host."""
     design = qp_form(np.asarray(forces, dtype=np.float64)) @ con_mat
-    gram = design.T @ design
+    return design.T @ design
+
+
+def _host_linear_fit_from_gram(
+    gram: np.ndarray,
+    con_mat: np.ndarray,
+    cmap_mat: np.ndarray,
+    l2_regularization: float,
+    delta: float = 1e-12,
+    refine_iters: int = 4,
+    solve=eqp_solve_host,
+) -> np.ndarray:
+    """The host fit's solve from its float64 Gram (also the streamed fit's
+    escalation); returns the (n_cg, N) map matrix."""
     if l2_regularization > 0.0:
         gram = gram + l2_regularization * (con_mat.T @ con_mat)
     a_mat = np.asarray(cmap_mat, dtype=np.float64) @ con_mat

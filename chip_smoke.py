@@ -93,7 +93,37 @@ fails:
    optimized maps correlate above 0.9 and differ below 0.1 (a map with
    M F^T = 1.5 I must fail); (6) with TF32 on, a fit reads the same bits;
    (7) no Gram kernel launches. Then times, a profiled fit and peak memory;
-9. one JSON line listing every kernel; the last line is the result.
+9. one JSON line listing every kernel, printed after phase 13; the last
+   line is the result;
+10. the generic featurizer path at config #3 width on 2,000 frames (cut
+   from 10,000: it holds each site's (T, N, K_exp) features on the host, as
+   the reference does): ``qp_feat_linear_map(allow_fused=False)`` with the
+   device and the host backends, each within 1e-4 of the float64 optimum
+   for the constraint values it meets (a Gram without the divergence term
+   must not be), no Gram kernel launch, the map's application equal to the
+   FusedGBMap of its coefficients, and gb_feat's "reorder" and "basic"
+   divergences against the closed form on 64 frames (every cg atom
+   constrained to a partner);
+11. the streamed featurized fit (``fused_gb_linear_map_streamed``) at
+   config #3 width over 100,000 frames read from .npy files in 4,096-frame
+   chunks: kernel 1 launched once per chunk; the streamed Gram within 1e-5
+   of the largest entry of the in-memory kernel Gram and of a float64 sum
+   (a stream that skips a chunk must not be); the fit within 1e-4 of its
+   float64 optimum; kernel 1 against its plain version at the chunk shapes;
+   the fit's time against its transfers at the pinned copy rate and its
+   kernel launches, and a profiled fit;
+12. the streamed linear fit (``qp_linear_map_streamed``) at the linear sweep
+   width over 20,000 frames from .npy files: within 5e-5 of the in-memory
+   map, mapped forces of 4,096 frames within 1e-5 relative RMS of the
+   float64 witness (a fit without constraints must not be), no kernel;
+13. ``stage_trajectory`` of phase 4's fixture (float32 bit-exact, float16
+   within 2e-3 of each value), ``save_tmap``/``load_tmap`` of a config-#3
+   FusedGBMap and a config-#1 map (the same forces to 1e-6), and the first
+   config-#3 fit in two fresh processes building the kernels from scratch,
+   without and with ``warm_featurized_fit`` overlapping a 2 s sleep.
+
+``python3 chip_smoke.py --warmup-child with|without BUILD_DIR`` is phase
+13's subprocess, not an entry point.
 
 The fixtures are the JAX bench's standalone geometry (bench.py:290-307),
 its CV and batch shapes (bench.py:783-820, 887-927),
@@ -192,6 +222,34 @@ REMAINING_LIMIT = 1e-6
 MSCG_SAMPLES, MSCG_TIMED_SAMPLES = 200, 1_000
 MSCG_CORR_LIMIT, MSCG_REL_LIMIT = 0.9, 0.1
 MSCG_FIELDS = dict(inner=0.2, outer=1.2, width=0.5)
+# the generic featurizer path at config #3 width: 2,000 frames, not 10,000,
+# because it holds each site's (T, N, K_exp) features on the host, as the
+# reference does (1.6 GB per site here, 8.1 GB at 10,000 frames); gb_feat's
+# autodiff divergences against the closed form on 64 frames
+# (tests/test_featlinear.py:98)
+GENERIC_FRAMES = 2_000
+DIV_FRAMES = 64
+DIV_ATOL, DIV_RTOL = 2e-4, 1e-3
+# a generic map's application against the FusedGBMap of its coefficients,
+# largest difference over largest entry
+GENERIC_APPLY_LIMIT = 1e-4
+# the streamed featurized fit: config #3 width, 100,000 frames in .npy files,
+# 4,096-frame chunks; its Gram against the in-memory kernel Gram and a
+# float64 sum of the same frames, relative to the largest entry
+STREAM_FRAMES = 100_000
+STREAM_CHUNK = 4_096
+STREAM_GRAM_LIMIT = 1e-5
+# the streamed linear fit at the linear sweep width over 20,000 frames
+# (.npy files): its map against the in-memory fit's (tests/test_stream.py:46)
+LINEAR_STREAM_FRAMES = 20_000
+LINEAR_STREAM_ATOL = 5e-5
+# staging: the float16 wire's error relative to each value (floor 1e-3;
+# tests/test_staging.py:40); maps after save_tmap/load_tmap against the
+# maps saved, largest difference over largest entry
+STAGE_F16_LIMIT = 2e-3
+SERIALIZE_REL_LIMIT = 1e-6
+# the host sleep that stands in for loading in the warm-up subprocesses
+WARMUP_SLEEP_S = 2.0
 
 
 def log(msg: str) -> None:
@@ -234,17 +292,25 @@ def phase_build():
         f"(nvcc {_build.last_build['seconds']:.3f})")
 
 
-def fixture():
+def fixture_geometry():
+    """Config #3's system (bench.py:290-307): base coordinates of 175 atoms,
+    30 constraint pairs, a cg site every 18th atom."""
     import numpy as np
 
     from aggforce_torch import LinearMap
-    from aggforce_torch.utils.synth import synthesize_trajectory
 
     rng = np.random.default_rng(0)
     n_sites = 175
     base = rng.normal(scale=0.5, size=(n_sites, 3))
     groups = [frozenset((i, i + 1)) for i in range(0, 60, 2)]
     cmap = LinearMap([[i] for i in range(0, n_sites, 18)], n_fg_sites=n_sites)
+    return base, groups, cmap
+
+
+def fixture():
+    from aggforce_torch.utils.synth import synthesize_trajectory
+
+    base, groups, cmap = fixture_geometry()
     coords, forces = synthesize_trajectory(base, groups, N_FRAMES, seed=2024)
     return coords, forces, cmap, groups
 
@@ -806,6 +872,22 @@ def phase_times(torch, np, coords, forces, cmap, groups, spec, ops):
     return report, fit_med
 
 
+def real_groups(kbt_counts):
+    """G, the groups of the Gram: the kernels pad the group axis to G_pad
+    with groups of weight 0, a choice of theirs that adds no work to the
+    function, so bounds and the library call count only the G real ones."""
+    return int((kbt_counts != 0).sum())
+
+
+def real_columns(rows, n_basis, g):
+    """Design rows (S, 3T, (1 + n_basis) * G_pad) cut to their
+    (1 + n_basis) * G real columns (``design_rows`` lays them out as
+    1 + n_basis blocks of G_pad), contiguous."""
+    s_dim, n_rows, k_pad = rows.shape
+    blocks = rows.view(s_dim, n_rows, 1 + n_basis, k_pad // (1 + n_basis))
+    return blocks[..., :g].reshape(s_dim, n_rows, (1 + n_basis) * g)
+
+
 def gram_kernel_times(torch, ops, n_basis, name):
     """Kernel 1 on the operands ``ops`` (as ``packed_operands`` returns
     them): its time, its plain version's, ``torch.bmm`` of the materialized
@@ -821,18 +903,19 @@ def gram_kernel_times(torch, ops, n_basis, name):
     kernel_ms = cuda_ms(torch, lambda: site_grams(*args), reps=10)
     plain_ms = cuda_ms(torch, lambda: site_grams_plain(*args), reps=3)
     gpos, cg, fg, mask, centers_flat, kcounts = ops
-    rows = design_rows(
+    s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
+    g = real_groups(kcounts[:g_pad])
+    k_pad, k_exp = g_pad * (1 + n_basis), g * (1 + n_basis)
+    rows = real_columns(design_rows(
         gpos, cg, fg, mask, centers_flat, kcounts, n_basis, 1.0 / WIDTH, 1e-3,
-    )
+    ), n_basis, g)
     rows_t = rows.transpose(1, 2)
     library_ms = cuda_ms(torch, lambda: torch.bmm(rows_t, rows), reps=5)
     del rows, rows_t
 
-    s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
-    k_pad = g_pad * (1 + n_basis)
-    flops = 2.0 * 3 * t * s_dim * k_pad * (k_pad + 1) / 2
+    flops = 2.0 * 3 * t * s_dim * k_exp * (k_exp + 1) / 2
     n_bytes = 4.0 * (
-        sum(x.numel() for x in ops) + s_dim * k_pad * k_pad
+        2 * 3 * t * g + cg.numel() + mask.numel() + 2 * k_exp + s_dim * k_exp * k_exp
     )
     n_chunks = -(-t // workspace_shapes(t, s_dim, k_pad)[0])
     return kernel_report(
@@ -1108,24 +1191,27 @@ def sweep_kernel_times(torch, args, n_basis):
     plain_ms = cuda_ms(torch, lambda: site_grams_tiled_plain(*kargs), reps=1)
     gpos, cg, fg, mask, centers, kbt_counts = args
     s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
-    k_pad = g_pad * (1 + n_basis)
-    rows = torch.empty((s_dim, 3 * t, k_pad), dtype=torch.float32, device="cuda")
+    g = real_groups(kbt_counts)
+    k_pad, k_exp = g_pad * (1 + n_basis), g * (1 + n_basis)
+    rows = torch.empty((s_dim, 3 * t, k_exp), dtype=torch.float32, device="cuda")
     for s in range(s_dim):
-        rows[s] = design_rows(
+        rows[s] = real_columns(design_rows(
             gpos, cg[s:s + 1], fg, mask, centers.repeat_interleave(g_pad),
             kbt_counts.repeat(n_basis), n_basis, 1.0 / WIDTH, 1e-3,
-        )[0]
+        ), n_basis, g)[0]
     rows_t = rows.transpose(1, 2)
     library_ms = cuda_ms(torch, lambda: torch.bmm(rows_t, rows), reps=1)
     one_site_bmm_ms = cuda_ms(torch, lambda: torch.bmm(rows_t[:1], rows[:1]), reps=2)
     del rows, rows_t
 
-    flops = 2.0 * 3 * t * s_dim * k_pad * (k_pad + 1) / 2
+    flops = 2.0 * 3 * t * s_dim * k_exp * (k_exp + 1) / 2
     pairs = block_pairs(n_basis)
     n_bytes = 4.0 * (
-        sum(x.numel() for x in args) + s_dim * len(pairs) * g_pad * g_pad
+        2 * 3 * t * g + cg.numel() + mask.numel() + n_basis + g
+        + s_dim * len(pairs) * g * g
     )
-    log(f"site_grams_tiled ({s_dim} sites): torch.bmm of one site's 2.2 GB rows "
+    log(f"site_grams_tiled ({s_dim} sites): torch.bmm of one site's "
+        f"{4.0 * 3 * t * k_exp / 1e9:.1f} GB rows "
         f"{one_site_bmm_ms:.3f} ms")
     tc, scratch_shape, running_shape = workspace_shapes(t, s_dim, k_pad)
     n_chunks = -(-t // tc)
@@ -1398,10 +1484,10 @@ def phase_linear_config1(torch, np, coords_np, forces_np, cmap, groups, spec, sm
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({smi})")
 
 
-def linear_sweep_fixture(torch):
+def linear_sweep_fixture(torch, n_frames=LINEAR_SWEEP_FRAMES, seed=1):
     """The JAX bench's linear sweep (bench.py:310-412), nothing cut: 3,000
     atoms, 750 constraint pairs, a cg site every 46th atom (S = 66),
-    100,000 frames made on the card."""
+    ``n_frames`` (100,000) frames made on the card."""
     import numpy as np
 
     from aggforce_torch import LinearMap
@@ -1412,7 +1498,7 @@ def linear_sweep_fixture(torch):
     groups = [frozenset((i, i + 1)) for i in range(0, n // 2, 2)]
     cmap = LinearMap([[i] for i in range(0, n, max(1, n // 64))], n_fg_sites=n)
     coords, forces = synthesize_trajectory_device(
-        base, groups, LINEAR_SWEEP_FRAMES, seed=1, motion_scale=0.02
+        base, groups, n_frames, seed=seed, motion_scale=0.02
     )
     return coords, forces, cmap, groups
 
@@ -2399,7 +2485,625 @@ def scope_cost(full_fp32, n=20_000):
     return min(rounds)
 
 
+def generic_problem(torch, np, coords, forces, cmap, groups, spec, gram_fn, seed=7):
+    """The generic path's per-site QPs in float64 on the card: the Gram of
+    ``gram_fn`` over the frames (the canonical layout, which is the
+    protocol path's feature layout) plus l2, and each site's constraint
+    rows and targets on the 20 frames the protocol path draws for it from
+    ``np.random.default_rng(seed)``, one site after another."""
+    from aggforce_torch.qp.fusedfeat import (
+        _assemble_constraint_system,
+        _regularized,
+        _site_gram,
+        group_factorization,
+    )
+
+    geom = group_factorization(cmap, spec, set(groups))
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float64, device="cuda")
+
+    xyz, frc = dev(coords), dev(forces)
+    consts = tuple(dev(geom[k]) for k in ("group_mean", "onehot", "counts", "centers"))
+    cmap_mat = dev(cmap.standard_matrix)
+    mask = torch.ones(len(coords), dtype=torch.float64, device="cuda")
+    gram = _regularized(
+        _site_gram(xyz, frc, mask, cmap_mat, *consts, KBT, spec, gram_fn), L2
+    )
+    rng = np.random.default_rng(seed)
+    rows, targets = [], []
+    for site in range(cmap.n_cg_sites):
+        idx = torch.as_tensor(rng.choice(len(coords), size=20, replace=False), device="cuda")
+        a_rows, b = _assemble_constraint_system(xyz[idx], cmap_mat, *consts, spec)
+        rows.append(a_rows[site])
+        targets.append(b[site])
+    return gram, torch.stack(rows), torch.stack(targets)
+
+
+def divergence_checks(torch, np, coords, cmap, groups, spec):
+    """gb_feat's autodiff divergences ("reorder", "basic") against the closed
+    form on DIV_FRAMES frames at config #3 width, every cg atom constrained
+    to a partner (the autodiff methods give NaN where an atom sits on its cg
+    point, as the reference's do). Returns the seconds of each method."""
+    from aggforce_torch import gb_feat
+
+    cg_atoms = [int(np.flatnonzero(row)[0]) for row in cmap.standard_matrix]
+    partnered = set(groups) | {
+        frozenset((a, a + 1)) for a in cg_atoms if not any(a in g for g in groups)
+    }
+    sub = coords[:DIV_FRAMES]
+    # "basic" takes one forward pass per coordinate of its batch: one frame
+    # at a time keeps its (3N, N, K_exp) tangents near 0.4 GB
+    batch = {"closed": None, "reorder": 16, "basic": 1}
+    divs, secs = {}, {}
+    for method in ("closed", "reorder", "basic"):
+        t0 = time.perf_counter()
+        out = gb_feat(
+            sub, cmap, partnered, outer=OUTER, n_basis=N_BASIS, width=WIDTH,
+            lazy=False, div_method=method, batch_size=batch[method],
+        )
+        divs[method] = np.stack(out["divs"])
+        secs[method] = time.perf_counter() - t0
+    failed = []
+    for method in ("reorder", "basic"):
+        d = np.abs(divs[method] - divs["closed"])
+        excess = float((d - (DIV_ATOL + DIV_RTOL * np.abs(divs["closed"]))).max())
+        finite = bool(np.isfinite(divs[method]).all())
+        log(f"  gb_feat div_method={method!r} vs 'closed' ({DIV_FRAMES} frames, "
+            f"{len(partnered)} pairs, {divs[method].shape}): max |diff| {d.max():.3e}, "
+            f"largest excess over atol {DIV_ATOL:.0e} + rtol {DIV_RTOL:.0e} "
+            f"{excess:+.3e}; finite {finite}; {secs[method]:.3f} s "
+            f"(closed {secs['closed']:.3f} s)")
+        if not finite or not excess <= 0.0:
+            failed.append(f"div_method={method!r} disagrees with the closed form")
+    if failed:
+        fail("; ".join(failed))
+    return secs
+
+
+def phase_generic(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
+    """The generic featurizer path at config #3 width on GENERIC_FRAMES
+    frames: ``qp_feat_linear_map(allow_fused=False)`` with the device and the
+    host backends. Gates: each fit within J_GAP_LIMIT of the float64 optimum
+    for the constraint values it meets (a fit on a Gram without the
+    divergence term must not be), no Gram kernel launch, the map's
+    application equal to the FusedGBMap of its coefficients, and gb_feat's
+    autodiff divergences against the closed form."""
+    from aggforce_torch import Curry, Multifeaturize, Trajectory, gb_feat, id_feat
+    from aggforce_torch.ops.gram import site_grams_plain
+    from aggforce_torch.qp import qp_feat_linear_map
+    from aggforce_torch.qp.fusedfeat import FusedGBMap, group_factorization
+
+    t_phase = time.perf_counter()
+    coords, forces = coords_np[:GENERIC_FRAMES], forces_np[:GENERIC_FRAMES]
+    featurizer = Multifeaturize(
+        [id_feat, Curry(gb_feat, outer=OUTER, n_basis=N_BASIS, width=WIDTH)]
+    )
+    log(f"generic path: {GENERIC_FRAMES} frames (reduced from {N_FRAMES}: each "
+        f"site's features are held on the host, "
+        f"{GENERIC_FRAMES * cmap.n_fg_sites * 1160 * 4 / 1e9:.2f} GB per site)")
+    fits, secs = {}, {}
+    for backend in ("device", "host"):
+        reset_counts()
+        t0 = time.perf_counter()
+        fits[backend] = qp_feat_linear_map(
+            Trajectory(coords=coords, forces=forces), cmap, featurizer, KBT,
+            constraints=set(groups), l2_regularization=L2, allow_fused=False,
+            constraint_rng=np.random.default_rng(7), solver_args={"backend": backend},
+        )
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+        read_counts(f"generic path, {backend} backend")
+        log(f"generic path, {backend} backend: {secs[backend]:.3f} s -> "
+            f"{GENERIC_FRAMES / secs[backend]:.1f} frames/s ({smi})")
+    gram, rows, b = generic_problem(
+        torch, np, coords, forces, cmap, groups, spec, site_grams_plain
+    )
+    fault_gram = generic_problem(
+        torch, np, coords, forces, cmap, groups, spec, without_divergence
+    )[0]
+    gram_h, rows_h = gram.cpu().numpy(), rows.cpu().numpy()
+    coefs = {
+        f"generic fit, {k} backend": np.stack(v.force_map.tags["coef_list"]).astype(np.float64)
+        for k, v in fits.items()
+    }
+    coefs["planted fault: no divergence term"] = device_solve(fault_gram, rows, b)
+    gaps = {}
+    for name, c in coefs.items():
+        gaps[name], _ = objective_gap(np, gram_h, rows_h, c)
+        viol = float(np.abs(np.einsum("smn,sn->sm", rows_h, c) - b.cpu().numpy()).max())
+        log(f"  {name}: objective gap to its float64 witness {gaps[name]:+.3e} "
+            f"(limit {J_GAP_LIMIT:.0e}); constraint violation {viol:.2e}")
+    failed = [
+        f"{name} objective gap {g:.3e}" for name, g in gaps.items()
+        if not name.startswith("planted") and not g <= J_GAP_LIMIT
+    ]
+    if not gaps["planted fault: no divergence term"] > J_GAP_LIMIT:
+        failed.append("the objective gate does not reject the planted fault")
+
+    geom = group_factorization(cmap, spec, set(groups))
+    fused = FusedGBMap(
+        coefs=coefs["generic fit, device backend"].astype(np.float32),
+        cmap_mat=np.asarray(cmap.standard_matrix, dtype=np.float32),
+        onehot=geom["onehot"], centers=geom["centers"], kbt=KBT, spec=spec,
+        device="cuda",
+    )
+    sub = slice(0, DIV_FRAMES)
+    _, generic = fits["device"].map_arrays(coords[sub], forces[sub])
+    rel = float(np.abs(fused(forces[sub], coords[sub]) - generic).max() / np.abs(generic).max())
+    log(f"  generic map applied to {DIV_FRAMES} frames (featurizer re-run, kbt on "
+        f"the divergence) vs the FusedGBMap of its coefficients: {rel:.3e} of the "
+        f"largest entry (limit {GENERIC_APPLY_LIMIT:.0e})")
+    if not rel <= GENERIC_APPLY_LIMIT:
+        failed.append("the generic map's application differs from the fused map's")
+    if failed:
+        fail("generic path: " + "; ".join(failed))
+    divergence_checks(torch, np, coords_np, cmap, groups, spec)
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 10 (generic path) {phase_s:.1f} s")
+    return secs
+
+
+class SkippingStream:
+    """A stream that drops one chunk: the planted fault of the streamed Gram
+    gate."""
+
+    def __init__(self, stream, skip):
+        self._stream, self._skip = stream, skip
+        self.chunk_size, self.n_sites = stream.chunk_size, stream.n_sites
+
+    def chunks(self, frame_slice=None):
+        for i, chunk in enumerate(self._stream.chunks(frame_slice)):
+            if i != self._skip:
+                yield chunk
+
+
+def write_npy(np, tmpdir, name, coords, forces):
+    """Save a card trajectory to two .npy files; returns their paths and
+    the seconds it took."""
+    import os
+
+    t0 = time.perf_counter()
+    paths = []
+    for kind, x in (("coords", coords), ("forces", forces)):
+        path = os.path.join(tmpdir, f"{name}_{kind}.npy")
+        np.save(path, x.cpu().numpy())
+        paths.append(path)
+    return paths, time.perf_counter() - t0
+
+
+def pinned_copy_rate(torch, shape):
+    """Bytes per second of a plain pinned host -> card copy of one float32
+    array of ``shape`` (CUDA events, 20 copies)."""
+    host = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty(shape, dtype=torch.float32, device="cuda")
+    ms = cuda_ms(torch, lambda: dev.copy_(host, non_blocking=True), reps=20)
+    return host.numel() * 4 / (ms / 1e3), ms
+
+
+def phase_streamed_featurized(torch, np, cmap, groups, spec, smi, tmpdir):
+    """The streamed featurized fit at config #3 width over STREAM_FRAMES
+    frames read from .npy files in STREAM_CHUNK-frame chunks. Gates: one
+    kernel-1 launch per chunk; the streamed Gram within STREAM_GRAM_LIMIT of
+    the largest entry of the in-memory kernel Gram of the same frames and of
+    a float64 sum (a stream that skips one chunk must not be); the fit within
+    J_GAP_LIMIT of its float64 optimum; kernel 1 against its plain version at
+    the chunk shapes. Returns (launches, kernel-1 report at the chunk shape,
+    max abs error, seconds of the streamed fit, seconds of its Gram); the
+    launches are those the last streamed fit made, read after its counts were
+    set to 0."""
+    from aggforce_torch import Trajectory
+    from aggforce_torch.io import TrajectoryStream, fused_gb_linear_map_streamed
+    from aggforce_torch.io.stream import streamed_site_grams
+    from aggforce_torch.ops.gram import site_grams, site_grams_plain, site_grams_tiled
+    from aggforce_torch.qp.fusedfeat import (
+        _assemble_constraint_system,
+        _host_solve,
+        _regularized,
+        _site_gram,
+        fused_gb_linear_map,
+        group_factorization,
+    )
+    from aggforce_torch.utils.synth import synthesize_trajectory_device
+
+    t_phase = time.perf_counter()
+    base, _, _ = fixture_geometry()
+    coords, forces = synthesize_trajectory_device(base, groups, STREAM_FRAMES, seed=2025)
+    (cpath, fpath), write_s = write_npy(np, tmpdir, "config3", coords, forces)
+    stream = TrajectoryStream.from_npy(cpath, fpath, chunk_size=STREAM_CHUNK)
+    n_chunks = -(-STREAM_FRAMES // STREAM_CHUNK)
+    n_bytes = 2 * coords.numel() * 4
+    log(f"streamed fixture: {STREAM_FRAMES} frames x {cmap.n_fg_sites} atoms made on "
+        f"the card and written to two .npy files ({n_bytes / 2e6:.1f} MB each) in "
+        f"{write_s:.3f} s; {n_chunks} chunks of {STREAM_CHUNK} frames. The files sit "
+        f"in the page cache, so the stream reads memory, not disk")
+    kw = dict(kbt=KBT, spec=spec, constraints=set(groups), l2_regularization=L2)
+
+    def streamed_fit():
+        return fused_gb_linear_map_streamed(
+            stream, cmap, constraint_rng=np.random.default_rng(7), **kw
+        )
+
+    fit_s = []
+    for attempt in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        tmap = streamed_fit()
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+        launches = site_grams.launches
+        read = {"site_grams": launches, "site_grams_tiled": site_grams_tiled.launches}
+        log(f"streamed featurized fit {attempt + 1}: {fit_s[-1]:.3f} s -> "
+            f"{STREAM_FRAMES / fit_s[-1]:.1f} frames/s; launches {read} (must be "
+            f"{n_chunks} and 0); solver_resid {tmap.force_map.tags['solver_resid']:.3e}, "
+            f"escalated {tmap.force_map.tags['escalated']} ({smi})")
+        if read != {"site_grams": n_chunks, "site_grams_tiled": 0}:
+            fail(f"the streamed featurized fit launched {read}, not kernel 1 once "
+                 f"per chunk ({n_chunks})")
+    traj = Trajectory(coords=coords, forces=forces)
+    mem_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fused_gb_linear_map(traj, cmap, constraint_rng=np.random.default_rng(7), **kw)
+        torch.cuda.synchronize()
+        mem_s.append(time.perf_counter() - t0)
+    log(f"in-memory fit of the same {STREAM_FRAMES} frames (trajectory on the card): "
+        f"{mem_s[1]:.3f} s (first {mem_s[0]:.3f} s) -> "
+        f"{STREAM_FRAMES / mem_s[1]:.1f} frames/s")
+
+    # the Gram gate
+    geom = group_factorization(cmap, spec, set(groups))
+    names = ("group_mean", "onehot", "counts", "centers")
+    cmap_np = np.asarray(cmap.standard_matrix)
+    consts = tuple(
+        torch.as_tensor(x, dtype=torch.float32, device="cuda")
+        for x in (cmap_np, *(geom[k] for k in names))
+    )
+    consts64 = tuple(x.double() for x in consts)
+    ones = torch.ones(STREAM_FRAMES, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = streamed_site_grams(stream, consts, KBT, spec)
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    in_memory = _site_gram(coords, forces, ones, *consts, KBT, spec, site_grams).double()
+    exact = _site_gram(
+        coords.double(), forces.double(), ones.double(), *consts64, KBT, spec,
+        site_grams_plain,
+    )
+    skipped = streamed_site_grams(SkippingStream(stream, 3), consts, KBT, spec).double()
+    peak = float(exact.abs().max())
+    errs = {
+        "streamed vs in-memory kernel Gram": float((streamed - in_memory).abs().max()) / peak,
+        "streamed vs float64 sum": float((streamed - exact).abs().max()) / peak,
+        "in-memory kernel Gram vs float64 sum": float((in_memory - exact).abs().max()) / peak,
+        "planted fault (chunk 3 skipped) vs in-memory kernel Gram":
+            float((skipped - in_memory).abs().max()) / peak,
+    }
+    for name, err in errs.items():
+        log(f"  {name}: max abs diff / max entry {err:.3e} (limit {STREAM_GRAM_LIMIT:.0e})")
+    failed = [
+        name for name in ("streamed vs in-memory kernel Gram", "streamed vs float64 sum")
+        if not errs[name] <= STREAM_GRAM_LIMIT
+    ]
+    if not errs["planted fault (chunk 3 skipped) vs in-memory kernel Gram"] > STREAM_GRAM_LIMIT:
+        failed.append("the Gram gate does not reject a stream that skips a chunk")
+
+    # the objective gate, on the streamed fit's own constraint frames
+    frame_idx = np.random.default_rng(7).choice(STREAM_FRAMES, size=20, replace=False)
+    rows, b = _assemble_constraint_system(
+        coords.double()[torch.as_tensor(frame_idx, device="cuda")], *consts64, spec
+    )
+    gram_h, rows_h = _regularized(exact, L2).cpu().numpy(), rows.cpu().numpy()
+    gap, _ = objective_gap(
+        np, gram_h, rows_h, np.stack(tmap.force_map.tags["coef_list"]).astype(np.float64)
+    )
+    log(f"  streamed fit: objective gap to its float64 witness {gap:+.3e} "
+        f"(limit {J_GAP_LIMIT:.0e})")
+    if not gap <= J_GAP_LIMIT:
+        failed.append(f"the streamed fit's objective gap {gap:.3e}")
+    # why the stream sums its chunk Grams in float64 (printed, not gated):
+    # the same chunks' kernel Grams summed in float32, and the float64 host
+    # solve (the escalation) of each sum against the optimum
+    sums = {"float32": None, "float64": None}
+    for lo in range(0, STREAM_FRAMES, STREAM_CHUNK):
+        part = _site_gram(
+            coords[lo:lo + STREAM_CHUNK], forces[lo:lo + STREAM_CHUNK],
+            ones[lo:lo + STREAM_CHUNK], *consts, KBT, spec, site_grams,
+        )
+        for kind in sums:
+            x = part if kind == "float32" else part.double()
+            sums[kind] = x if sums[kind] is None else sums[kind] + x
+    for kind, total in sums.items():
+        err = float((total.double() - exact).abs().max()) / peak
+        coefs_h, _ = _host_solve(_regularized(total.double(), L2), rows, b)
+        sum_gap, _ = objective_gap(np, gram_h, rows_h, coefs_h.astype(np.float64))
+        log(f"  the {len(range(0, STREAM_FRAMES, STREAM_CHUNK))} chunk Grams summed in "
+            f"{kind}: {err:.3e} of the largest entry from the float64 sum; its float64 "
+            f"host solve {sum_gap:+.3e} above the optimum")
+    del streamed, in_memory, exact, skipped, rows, sums
+    if failed:
+        fail("streamed featurized fit: " + "; ".join(failed))
+
+    # kernel 1 at the stream's chunk shapes, against its plain version
+    tail = STREAM_FRAMES - (n_chunks - 1) * STREAM_CHUNK
+    ops = packed_operands(
+        torch, coords[:STREAM_CHUNK], forces[:STREAM_CHUNK], cmap, groups, spec
+    )
+    errs_k = [
+        compare_kernel(torch, ops, spec.n_basis, f"streamed chunk, T={STREAM_CHUNK}"),
+        compare_kernel(
+            torch, packed_operands(torch, coords[-tail:], forces[-tail:], cmap, groups, spec),
+            spec.n_basis, f"streamed last chunk, T={tail}",
+        ),
+    ]
+    report = gram_kernel_times(
+        torch, ops, spec.n_basis, f"site_grams at the streamed chunk shape (T={STREAM_CHUNK})"
+    )
+    rate, copy_ms = pinned_copy_rate(torch, (STREAM_CHUNK, cmap.n_fg_sites, 3))
+    transfer_s = n_bytes / rate
+    kernel_s = n_chunks * report["ms"] / 1e3
+    best = min(fit_s)
+    bound_s = max(transfer_s, kernel_s)
+    log(f"streamed fit against its bounds: bytes moved host -> card "
+        f"{n_bytes / 1e6:.1f} MB; pinned copy of one {STREAM_CHUNK}-frame array "
+        f"{copy_ms:.3f} ms -> {rate / 1e9:.2f} GB/s, so the transfers take "
+        f"{transfer_s:.3f} s; {n_chunks} x kernel 1 at the chunk shape "
+        f"{kernel_s:.3f} s. The streamed Gram alone (streamed_site_grams) "
+        f"{gram_s:.3f} s -> {STREAM_FRAMES / gram_s:.1f} frames/s, "
+        f"{gram_s / bound_s:.2f}x max(transfer, kernels); the whole fit "
+        f"{best:.3f} s, {best / bound_s:.2f}x ({smi})")
+    fit_breakdown(torch, streamed_fit, best)
+    log(f"phase 11 (streamed featurized fit) {time.perf_counter() - t_phase:.1f} s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del coords, forces, traj, ops
+    return launches, report, max(errs_k), best, gram_s
+
+
+def phase_streamed_linear(torch, np, smi, tmpdir):
+    """The streamed linear fit at the linear sweep width over
+    LINEAR_STREAM_FRAMES frames read from .npy files. Gates: the map within
+    LINEAR_STREAM_ATOL of the in-memory ``qp_linear_map`` of the same frames,
+    the mapped forces of SWEEP_CHECK_FRAMES frames within
+    SWEEP_REL_RMS_LIMIT of a float64 witness (a fit without constraints must
+    not be), and no Gram kernel launch."""
+    from aggforce_torch import Trajectory
+    from aggforce_torch.io import TrajectoryStream, qp_linear_map_streamed
+    from aggforce_torch.qp import qp_linear_map
+
+    t_phase = time.perf_counter()
+    coords, forces, cmap, groups = linear_sweep_fixture(torch, LINEAR_STREAM_FRAMES, seed=2)
+    (cpath, fpath), write_s = write_npy(np, tmpdir, "linear", coords, forces)
+    stream = TrajectoryStream.from_npy(cpath, fpath, chunk_size=STREAM_CHUNK)
+    log(f"streamed linear fixture: {LINEAR_STREAM_FRAMES} frames x {cmap.n_fg_sites} "
+        f"atoms written to .npy ({forces.numel() * 4 / 1e6:.1f} MB per array) in "
+        f"{write_s:.3f} s (page cache)")
+    fit_s = []
+    for attempt in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        smap = qp_linear_map_streamed(stream, cmap, constraints=set(groups))
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+        read_counts(f"streamed linear fit {attempt + 1}")
+    reset_counts()
+    traj = Trajectory(coords=coords, forces=forces)
+    t0 = time.perf_counter()
+    mmap = qp_linear_map(traj, cmap, constraints=set(groups))
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    read_counts("in-memory linear fit of the same frames")
+    diff = float(np.abs(
+        smap.force_map.standard_matrix - mmap.force_map.standard_matrix
+    ).max())
+    log(f"streamed linear fit: {fit_s[1]:.3f} s (first {fit_s[0]:.3f} s) -> "
+        f"{LINEAR_STREAM_FRAMES / fit_s[1]:.1f} frames/s; in-memory fit {mem_s:.3f} s; "
+        f"max |F_streamed - F_in_memory| {diff:.3e} (limit {LINEAR_STREAM_ATOL:.0e}) ({smi})")
+    fault = qp_linear_map_streamed(stream, cmap, constraints=set())
+    witness = sweep_witness(torch, np, forces, cmap, set(groups))
+    head = forces[:SWEEP_CHECK_FRAMES]
+    expect = torch.einsum("sn,tnd->tsd", witness, head.double())
+    errs = {}
+    for name, tm in (("streamed fit", smap), ("planted fault: constraints=set()", fault)):
+        errs[name] = rel_rms(torch, tm.force_map(head), expect)
+        log(f"  {name}: mapped forces of {SWEEP_CHECK_FRAMES} frames vs the float64 "
+            f"witness, rel RMS {errs[name]:.3e} (limit {SWEEP_REL_RMS_LIMIT:.0e})")
+    failed = []
+    if not diff <= LINEAR_STREAM_ATOL:
+        failed.append("the streamed map is off the in-memory map")
+    if not errs["streamed fit"] <= SWEEP_REL_RMS_LIMIT:
+        failed.append("the streamed fit misses the float64 witness")
+    if not errs["planted fault: constraints=set()"] > SWEEP_REL_RMS_LIMIT:
+        failed.append("the witness gate does not reject the planted fault")
+    if failed:
+        fail("streamed linear fit: " + "; ".join(failed))
+    log(f"phase 12 (streamed linear fit) {time.perf_counter() - t_phase:.1f} s")
+    return fit_s[1]
+
+
+def staging_checks(torch, np, coords, forces, smi):
+    """``stage_trajectory`` of phase 4's fixture: float32 bit-exact, float16
+    within STAGE_F16_LIMIT of each value at half the bytes."""
+    from aggforce_torch.io import stage_trajectory
+
+    chunk_bytes = 4 << 20
+    failed = []
+    for wire in ("float32", "float16"):
+        traj, report = stage_trajectory(coords, forces, wire_dtype=wire, chunk_bytes=chunk_bytes)
+        itemsize = 4 if wire == "float32" else 2
+        rows = max(1, chunk_bytes // (coords.shape[1] * 3 * itemsize))
+        sizes = [
+            min(rows, len(coords) - lo) * coords.shape[1] * 3 * itemsize
+            for _ in range(2) for lo in range(0, len(coords), rows)
+        ]
+        mbps = [b / s / 1e6 for b, s in zip(sizes, report.chunk_seconds)]
+        if wire == "float32":
+            exact = all(
+                torch.equal(x.cpu(), torch.as_tensor(y))
+                for x, y in ((traj.coords, coords), (traj.forces, forces))
+            )
+            ok, detail = exact, f"bit-exact {exact}"
+        else:
+            rel = max(
+                float((np.abs(x.cpu().numpy() - y) / np.maximum(np.abs(y), 1e-3)).max())
+                for x, y in ((traj.coords, coords), (traj.forces, forces))
+            )
+            ok = rel < STAGE_F16_LIMIT and report.bytes == coords.nbytes
+            detail = f"largest relative error {rel:.3e} (limit {STAGE_F16_LIMIT:.0e})"
+        log(f"  stage_trajectory wire {wire}: {report.bytes / 1e6:.1f} MB in "
+            f"{report.n_chunks} chunks, {report.seconds * 1e3:.2f} ms, "
+            f"{report.mbps:.1f} MB/s overall; MB/s per chunk "
+            f"{', '.join(f'{x:.0f}' for x in mbps)}; degraded {report.degraded}; "
+            f"{detail} ({smi})")
+        if not ok:
+            failed.append(f"staging over the {wire} wire")
+    return failed
+
+
+def persistence_checks(torch, np, coords, forces, cmap, groups, spec, tmpdir):
+    """save_tmap/load_tmap of a config-#3 FusedGBMap fit and a config-#1 map
+    on the card: the loaded maps apply to the same forces."""
+    import os
+
+    from aggforce_torch import Trajectory
+    from aggforce_torch.qp import qp_linear_map
+    from aggforce_torch.qp.fusedfeat import fused_gb_linear_map
+    from aggforce_torch.utils.serialize import load_tmap, save_tmap
+
+    traj = Trajectory(
+        coords=torch.as_tensor(coords, device="cuda"),
+        forces=torch.as_tensor(forces, device="cuda"),
+    )
+    maps = {
+        "config #3 FusedGBMap": fused_gb_linear_map(
+            traj, cmap, kbt=KBT, spec=spec, constraints=set(groups),
+            l2_regularization=L2, constraint_rng=np.random.default_rng(7),
+        ),
+        "config #1 TLinearMap": qp_linear_map(traj, cmap, constraints=set(groups)),
+    }
+    failed = []
+    for name, tmap in maps.items():
+        path = os.path.join(tmpdir, "map.npz")
+        t0 = time.perf_counter()
+        save_tmap(path, tmap)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_tmap(path)
+        load_s = time.perf_counter() - t0
+        before = tmap(traj).forces
+        after = loaded(traj).forces
+        rel = float((after - before).abs().max() / before.abs().max())
+        log(f"  save_tmap/load_tmap {name}: {os.path.getsize(path)} bytes, save "
+            f"{save_s * 1e3:.1f} ms, load {load_s * 1e3:.1f} ms; mapped forces of "
+            f"{len(coords)} frames after the round trip {rel:.3e} of the largest "
+            f"entry (limit {SERIALIZE_REL_LIMIT:.0e}); loaded on {after.device}")
+        if not rel <= SERIALIZE_REL_LIMIT or after.device.type != "cuda":
+            failed.append(f"the {name} round trip")
+    return failed
+
+
+def warmup_child(mode, build_dir):
+    """One fresh process's first config-#3 fit, with or without
+    ``warm_featurized_fit`` overlapping a WARMUP_SLEEP_S host sleep and the
+    fixture's synthesis (the loading); the kernels build into the empty
+    ``build_dir``. Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    from aggforce_torch import Trajectory
+    from aggforce_torch.ops import _build
+    from aggforce_torch.ops.gram import site_grams
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec, fused_gb_linear_map
+    from aggforce_torch.utils.cache import enable_compile_cache
+    from aggforce_torch.utils.warmup import warm_featurized_fit
+
+    if not torch.cuda.is_available():
+        fail("the warm-up subprocess has no CUDA card")
+    enable_compile_cache(build_dir)
+    _, groups, cmap = fixture_geometry()
+    spec = GBFeatSpec(outer=OUTER, n_basis=N_BASIS, width=WIDTH)
+    t0 = time.perf_counter()
+    handle = None
+    if mode == "with":
+        handle = warm_featurized_fit(
+            N_FRAMES, cmap, spec, set(groups), kbt=KBT, l2_regularization=L2
+        )
+    time.sleep(WARMUP_SLEEP_S)
+    coords, forces, _, _ = fixture()
+    load_s = time.perf_counter() - t0
+    wait_s = handle.wait() if handle is not None else 0.0
+    t1 = time.perf_counter()
+    fused_gb_linear_map(
+        Trajectory(coords=coords, forces=forces), cmap, kbt=KBT, spec=spec,
+        constraints=set(groups), l2_regularization=L2,
+        constraint_rng=np.random.default_rng(7),
+    )
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    print(json.dumps({
+        "mode": mode, "load_s": load_s, "wait_s": wait_s, "first_fit_s": done - t1,
+        "to_map_s": done - t0, "build_s": _build.last_build["seconds"],
+        "warmup_phases": handle.phases if handle is not None else {},
+        "warmup_error": repr(handle.error) if handle is not None and handle.error else None,
+        "site_grams_launches": site_grams.launches,
+    }))
+    return 0
+
+
+def warmup_checks(tmpdir):
+    """The first config-#3 fit in two fresh subprocesses, each building the
+    kernels into its own empty directory: without and with the warm-up."""
+    import os
+
+    out = {}
+    failed = []
+    for mode in ("without", "with"):
+        build_dir = os.path.join(tmpdir, f"build_{mode}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warmup-child", mode, build_dir],
+            capture_output=True, text=True, timeout=600,
+        )
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            failed.append(f"the warm-up subprocess ({mode}) failed: {proc.stderr[-2000:]}")
+            continue
+        res = json.loads(lines[-1])
+        out[mode] = res
+        log(f"  fresh process {mode} warm_featurized_fit: first config-#3 fit "
+            f"{res['first_fit_s']:.3f} s after {res['load_s']:.3f} s of loading "
+            f"(a {WARMUP_SLEEP_S:.0f} s sleep and the fixture) and a "
+            f"{res['wait_s']:.3f} s wait for the warm-up; loading to fitted map "
+            f"{res['to_map_s']:.3f} s; nvcc (_build.last_build) {res['build_s']:.3f} s; "
+            f"warm-up phases {res['warmup_phases']}; process wall {wall:.1f} s")
+        if res["warmup_error"] or res["site_grams_launches"] < 1:
+            failed.append(f"the {mode} process: {res}")
+    if len(out) == 2:
+        log(f"  warm-up saves {out['without']['first_fit_s'] - out['with']['first_fit_s']:.3f} s "
+            f"of the first fit and {out['without']['to_map_s'] - out['with']['to_map_s']:.3f} s "
+            f"from loading to fitted map")
+    return failed, out
+
+
+def phase_staging_persistence_warmup(torch, np, coords, forces, cmap, groups, spec, smi, tmpdir):
+    """Staging, map persistence and the warm-up (phase 13)."""
+    t_phase = time.perf_counter()
+    failed = staging_checks(torch, np, coords, forces, smi)
+    failed += persistence_checks(torch, np, coords, forces, cmap, groups, spec, tmpdir)
+    warm_failed, warm = warmup_checks(tmpdir)
+    failed += warm_failed
+    if failed:
+        fail("phase 13: " + "; ".join(failed))
+    log(f"phase 13 (staging, persistence, warm-up) {time.perf_counter() - t_phase:.1f} s")
+    return warm
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--warmup-child"]:
+        return warmup_child(*sys.argv[2:4])
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -2435,23 +3139,44 @@ def main() -> int:
     phase_linear_config1(torch, np, coords, forces, cmap, groups, spec, smi)
     phase_gauss_config2(torch, np, coords, forces, cmap, groups, smi)
     phase_linear_sweep(torch, np, smi)
+    generic_s = phase_generic(torch, np, coords, forces, cmap, groups, spec, smi)
+    with tempfile.TemporaryDirectory(prefix="aggforce_smoke_") as tmpdir:
+        streamed = phase_streamed_featurized(torch, np, cmap, groups, spec, smi, tmpdir)
+        stream_launches, stream_times, stream_err, stream_s, stream_gram_s = streamed
+        linear_stream_s = phase_streamed_linear(torch, np, smi, tmpdir)
+        warm = phase_staging_persistence_warmup(
+            torch, np, coords, forces, cmap, groups, spec, smi, tmpdir
+        )
+    log(f"generic path {generic_s['device']:.3f} s (device backend), "
+        f"{generic_s['host']:.3f} s (host backend) at {GENERIC_FRAMES} frames; "
+        f"streamed featurized fit {stream_s:.3f} s (its Gram {stream_gram_s:.3f} s) at "
+        f"{STREAM_FRAMES} frames; "
+        f"streamed linear fit {linear_stream_s:.3f} s at {LINEAR_STREAM_FRAMES} frames; "
+        f"first fit in a fresh process {warm['without']['first_fit_s']:.3f} s without "
+        f"warm-up, {warm['with']['first_fit_s']:.3f} s with ({smi})")
     kernels = [
         {
             "name": "site_grams",
             "route": "cuda",
             "source": "aggforce_torch/csrc/site_grams.cu",
             "replaces": "aggforce_tpu/ops/pallas_gram.py:36",
-            "launches": launches + cv_launches + grid_launches + batch_launches,
+            "launches": (
+                launches + cv_launches + grid_launches + batch_launches + stream_launches
+            ),
             "launches_by_path": {
                 "config #3 fit (project_forces)": launches,
                 "config #4 CV (fused_gb_cv)": cv_launches,
                 "featurized grid (project_forces_grid_cv)": grid_launches,
                 "batch fits (fused_gb_linear_map_batch)": batch_launches,
                 "config #2 (Gaussian maps)": 0,
+                "streamed featurized fit (fused_gb_linear_map_streamed)": stream_launches,
+                "generic featurizer path (qp_feat_linear_map, allow_fused=False)": 0,
+                "streamed linear fit (qp_linear_map_streamed)": 0,
             },
-            "max_abs_err": max_err,
+            "max_abs_err": max(max_err, stream_err),
             **times,
             "at_fold_shape": fold_times,
+            "at_stream_chunk_shape": stream_times,
         },
         {
             "name": "site_grams_tiled",
@@ -2462,6 +3187,9 @@ def main() -> int:
             "launches_by_path": {
                 "sweep fit (fused_gb_linear_map_blocked)": tiled_launches,
                 "config #2 (Gaussian maps)": 0,
+                "streamed featurized fit (fused_gb_linear_map_streamed)": 0,
+                "generic featurizer path (qp_feat_linear_map, allow_fused=False)": 0,
+                "streamed linear fit (qp_linear_map_streamed)": 0,
             },
             "max_abs_err": tiled_err,
             **tiled_times,

@@ -14,6 +14,7 @@ from aggforce_torch.qp.feat import gb_feat as port_gb_feat
 from aggforce_torch.utils.synth import synthesize_trajectory as port_synth
 
 import aggforce_tpu as jt
+import aggforce_tpu.utils  # noqa: F401 - Curry for the JAX featurizer
 from aggforce_tpu.qp import fusedfeat as jff
 from aggforce_tpu.qp.jaxfeat import gb_feat as jax_gb_feat
 from aggforce_tpu.trajectory import Trajectory as JTrajectory
@@ -170,16 +171,34 @@ def test_recognizes_only_the_port_featurizer(system):
     assert pff.recognize_canonical_featurizer(_featurizer(pt)) == pff.GBFeatSpec(
         outer=2.0, n_basis=4
     )
-    # the JAX package's gb_feat is another function: the generic protocol
-    # path, which is not ported, raises instead of running
+    # the JAX package's gb_feat is another function: the port takes the
+    # generic protocol path with it, and lands on the JAX generic fit
     foreign = pt.qp.Multifeaturize(
         [pt.qp.id_feat, pt.utils.Curry(jax_gb_feat, outer=2.0, n_basis=4)]
     )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        pt.qp_feat_linear_map(
-            pt.Trajectory(coords=coords, forces=forces),
-            pt.LinearMap(SITES, n_fg_sites=N_ATOMS), foreign, KBT, device="cpu",
-        )
+    assert pff.recognize_canonical_featurizer(foreign) is None
+    kw = dict(
+        constraints=set(GROUPS), l2_regularization=L2, n_constraint_frames=10,
+        constraint_rng=np.random.default_rng(7),
+    )
+    port = pt.qp_feat_linear_map(
+        pt.Trajectory(coords=coords, forces=forces),
+        pt.LinearMap(SITES, n_fg_sites=N_ATOMS), foreign, KBT, device="cpu", **kw,
+    )
+    assert not isinstance(port.force_map, pff.FusedGBMap)
+    jax = jt.qp.qp_feat_linear_map(
+        JTrajectory(coords=coords, forces=forces),
+        jt.LinearMap(SITES, n_fg_sites=N_ATOMS),
+        jt.qp.Multifeaturize(
+            [jt.qp.id_feat, jt.utils.Curry(jax_gb_feat, outer=2.0, n_basis=4)]
+        ),
+        KBT, allow_fused=False, **kw,
+    )
+    _, jf = jax.map_arrays(coords[:64], forces[:64])
+    np.testing.assert_allclose(
+        port.map_arrays(coords[:64], forces[:64])[1], np.asarray(jf),
+        atol=2e-3 * np.abs(jf).mean(),
+    )
 
 
 def test_use_kernel_true_needs_the_card(system):

@@ -24,7 +24,12 @@ def test_import_pulls_in_no_jax():
         "aggforce_torch.native, aggforce_torch.utils.pdblite, "
         "aggforce_torch.ops.eqp, aggforce_torch.ops.torchcore, aggforce_torch.agg, "
         "aggforce_torch.trajectory.gaussian, aggforce_torch.qp.gauss, "
-        "aggforce_torch.qp.gauss_fused, aggforce_torch.mapval, aggforce_torch.models\n"
+        "aggforce_torch.qp.gauss_fused, aggforce_torch.mapval, aggforce_torch.models, "
+        "aggforce_torch.io, aggforce_torch.io.stream, aggforce_torch.io.staging, "
+        "aggforce_torch.utils.serialize, aggforce_torch.utils.warmup, "
+        "aggforce_torch.utils.prof, aggforce_torch.utils.debug, "
+        "aggforce_torch.utils.devcache, aggforce_torch.utils.cache, "
+        "aggforce_torch.util, aggforce_torch.torchutil\n"
         "bad = [m for m in sys.modules if m in ('jax', 'aggforce_tpu') "
         "or m.startswith(('jax.', 'aggforce_tpu.'))]\n"
         "print(bad)\n"
@@ -250,20 +255,77 @@ def _map_validation():
     random_force_proj(coords, forces, n_samples=2)
 
 
+def _generic_fit():
+    from aggforce_torch import Trajectory, id_feat, qp_feat_linear_map
+
+    coords, forces, cmap = _fixture()
+    qp_feat_linear_map(
+        Trajectory(coords=coords, forces=forces), cmap, id_feat, 0.7, allow_fused=False
+    )
+
+
+def _streamed_linear_fit():
+    from aggforce_torch.io import TrajectoryStream, qp_linear_map_streamed
+
+    coords, forces, cmap = _fixture()
+    qp_linear_map_streamed(TrajectoryStream.from_arrays(coords, forces), cmap)
+
+
+def _streamed_featurized_fit():
+    from aggforce_torch.io import TrajectoryStream, fused_gb_linear_map_streamed
+    from aggforce_torch.qp import GBFeatSpec
+
+    coords, forces, cmap = _fixture()
+    fused_gb_linear_map_streamed(
+        TrajectoryStream.from_arrays(coords, forces), cmap, kbt=0.7,
+        spec=GBFeatSpec(outer=1.0, n_basis=2),
+    )
+
+
+def _staging():
+    from aggforce_torch.io import stage_trajectory
+
+    coords, forces, _ = _fixture()
+    stage_trajectory(coords, forces)
+
+
+def _load_map(tmp_path):
+    from aggforce_torch.utils.serialize import load_tmap, save_tmap
+
+    path = str(tmp_path / "map.npz")
+    save_tmap(path, _fixture()[2])
+    load_tmap(path)
+
+
+def _warm_up():
+    from aggforce_torch.qp import GBFeatSpec
+    from aggforce_torch.utils.warmup import warm_featurized_fit
+
+    warm_featurized_fit(8, _fixture()[2], GBFeatSpec(outer=1.0, n_basis=2))
+
+
+def _device_const():
+    from aggforce_torch.utils.devcache import device_const
+
+    device_const(np.ones(3))
+
+
 @pytest.mark.parametrize(
     "entry",
     [_project_forces, _fused_fit, _blocked_fit, _tlinear_map, _map_carry, _gb_feat,
      _project_forces_defaults, _linear_fit, _finder, _fold_probe, _linear_cv,
      _device_synthesis, _linear_map_carry, _featurized_cv, _featurized_grid_cv,
      _batch_fits, _gauss_fit, _staged_gauss_fit, _slice_gauss_map, _force_gauss_fit,
-     _gauss_project_forces, _augmenter, _gauss_map_carry, _map_validation],
+     _gauss_project_forces, _augmenter, _gauss_map_carry, _map_validation,
+     _generic_fit, _streamed_linear_fit, _streamed_featurized_fit, _staging,
+     _load_map, _warm_up, _device_const],
     ids=lambda f: f.__name__.strip("_"),
 )
-def test_entry_points_need_cuda_unless_told(monkeypatch, entry):
+def test_entry_points_need_cuda_unless_told(monkeypatch, tmp_path, entry):
     """device=None means the card: without CUDA it raises, never runs on CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        entry()
+        entry(tmp_path) if entry is _load_map else entry()
 
 
 def test_native_build_writes_only_under_build_dir(monkeypatch):
