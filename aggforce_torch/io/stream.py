@@ -23,8 +23,16 @@ is one launch of the hand-written Gram kernel; the kernel masks the ragged
 frame edge, so the last chunk is not padded. The linear update is the
 in-memory fit's blockwise Gram (:func:`aggforce_torch.qp.qplinear._linear_gram`).
 Both finish with the in-memory fits' solvers and float64 escalations.
+
+With a ``mesh`` (``parallel.make_mesh``, one process per device) each rank
+streams its own chunks (its ``frame_slice``, e.g. from
+``parallel.process_frame_slice``, or else every n-th chunk of the stream)
+into its own device's Gram, and one all-reduce at the finish gives every
+rank the global Gram; the solve, its check and its escalation then run
+replicated, so every rank returns the same map.
 """
 
+import itertools
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -32,6 +40,7 @@ import torch
 
 from ..constraints import Constraints
 from ..map import CLAFTMap, LinearMap, SeperableTMap, TLinearMap
+from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device
 from ..qp.fusedfeat import (
     GBFeatSpec,
     _assemble_constraint_system,
@@ -51,8 +60,6 @@ from ..qp.qplinear import (
     make_bond_constraint_matrix,
 )
 from ..utils.device import DeviceLike, full_fp32, resolve_device
-
-_MESH_MESSAGE = "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
 
 
 class TrajectoryStream:
@@ -128,6 +135,16 @@ class TrajectoryStream:
         return np.stack([np.asarray(self.coords[int(i)]) for i in frame_idx])
 
 
+def _rank_chunks(stream, frame_slice: Optional[slice], mesh: Optional[FrameMesh]):
+    """The chunks this rank streams: every chunk of ``frame_slice`` (each
+    rank passes its own), or without one every n-th chunk of the stream,
+    from the rank's index on (chunks are views, read only when uploaded)."""
+    chunks = stream.chunks(frame_slice)
+    if mesh is None or frame_slice is not None:
+        return chunks
+    return itertools.islice(chunks, mesh.rank, None, mesh.size)
+
+
 class _Uploader:
     """Chunk uploads to ``device``: on the card through two pinned host
     buffers and a side stream (see the module docstring), elsewhere a plain
@@ -184,18 +201,20 @@ def streamed_linear_gram(
     labels: torch.Tensor,
     r: int,
     frame_slice: Optional[slice] = None,
+    mesh: Optional[FrameMesh] = None,
 ) -> torch.Tensor:
     """(R, R) float32 force Gram of the streamed frames on ``labels``'
     device: one :func:`aggforce_torch.qp.qplinear._linear_gram` per chunk,
-    summed in float32."""
+    summed in float32; with ``mesh``, this rank's chunks
+    (:func:`_rank_chunks`) summed over the ranks."""
     dev = labels.device
     up = _Uploader(dev, stream.chunk_size, stream.n_sites, 1)
     gram = torch.zeros((r, r), dtype=torch.float32, device=dev)
     with full_fp32():
-        for _, fc, _ in stream.chunks(frame_slice):
+        for _, fc, _ in _rank_chunks(stream, frame_slice, mesh):
             (forces,) = up.upload(fc)
             gram += _linear_gram(forces, labels, r)
-    return gram
+    return gram if mesh is None else mesh.all_reduce(gram)
 
 
 def qp_linear_map_streamed(
@@ -217,15 +236,19 @@ def qp_linear_map_streamed(
     (over the whole stream when ``frame_slice`` is None, else over the
     slice). ``frame_slice`` restricts the fit to a contiguous frame range.
     Returns ``TLinearMap``s on ``device``.
+
+    With ``mesh`` each rank streams its chunks (its ``frame_slice``, or
+    every n-th chunk) and one all-reduce sums the Grams; an escalation then
+    solves that global float32 Gram in float64 on every rank (a float64
+    re-stream would need a second reduction), as the JAX package does.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+    fm = as_frame_mesh(mesh) if mesh is not None else None
     if constraints is None:
         constraints = set()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if fm is None else mesh_device(fm, device)
     labels_np, r = constraint_labels(coord_map.n_fg_sites, constraints)
     labels = torch.as_tensor(labels_np, dtype=torch.int64, device=dev)
-    gram = streamed_linear_gram(stream, labels, r, frame_slice)
+    gram = streamed_linear_gram(stream, labels, r, frame_slice, fm)
     cmap_mat = torch.as_tensor(
         np.asarray(coord_map.standard_matrix), dtype=torch.float32, device=dev
     )
@@ -236,11 +259,15 @@ def qp_linear_map_streamed(
     fmap_mat = fetched[:-1].reshape(fmap_dev.shape)
     if not np.all(np.isfinite(fmap_mat)) or not float(fetched[-1]) <= resid_tol:
         # escalation re-accumulates the Gram in float64 on the host (rare
-        # path; correctness over speed)
+        # path; correctness over speed); a mesh fit solves its reduced
+        # (replicated) Gram in float64
         con_mat = make_bond_constraint_matrix(coord_map.n_fg_sites, constraints)
-        gram64 = np.zeros((r, r))
-        for _, fc, _ in stream.chunks(frame_slice):
-            gram64 += _host_linear_gram(fc, con_mat)
+        if fm is not None:
+            gram64 = gram.cpu().numpy().astype(np.float64)
+        else:
+            gram64 = np.zeros((r, r))
+            for _, fc, _ in stream.chunks(frame_slice):
+                gram64 += _host_linear_gram(fc, con_mat)
         fmap_mat = _host_linear_fit_from_gram(
             gram64, con_mat, coord_map.standard_matrix, l2_regularization
         )
@@ -256,9 +283,12 @@ def streamed_site_grams(
     kbt: float,
     spec: GBFeatSpec,
     frame_slice: Optional[slice] = None,
+    mesh: Optional[FrameMesh] = None,
 ) -> torch.Tensor:
     """Per-site featurized Grams (S, K_exp, K_exp) of the streamed frames,
-    without the l2 term, summed over the chunks in float64.
+    without the l2 term, summed over the chunks in float64; with ``mesh``,
+    this rank's chunks (:func:`_rank_chunks`), and the float64 sum
+    all-reduced over the ranks.
 
     ``consts`` are the fit constants on the fit's device (cmap, group_mean,
     onehot, counts, centers, float32). Each chunk is one
@@ -276,7 +306,7 @@ def streamed_site_grams(
     up = _Uploader(dev, stream.chunk_size, stream.n_sites, 2)
     gram = None
     with full_fp32():
-        for cc, fc, n_valid in stream.chunks(frame_slice):
+        for cc, fc, n_valid in _rank_chunks(stream, frame_slice, mesh):
             coords, forces = up.upload(cc, fc)
             mask = torch.ones(n_valid, dtype=torch.float32, device=dev)
             part = _site_gram(
@@ -284,9 +314,15 @@ def streamed_site_grams(
                 float(kbt), spec, gram_fn,
             )
             gram = part.double() if gram is None else gram.add_(part)
-    if gram is None:
-        raise ValueError("the stream holds no frames")
-    return gram
+    if mesh is None:
+        if gram is None:
+            raise ValueError("the stream holds no frames")
+        return gram
+    if gram is None:  # this rank's share holds no chunk
+        g = onehot.shape[1]
+        k_exp = g * (spec.n_basis + (1 if spec.include_id else 0))
+        gram = torch.zeros((cmap_mat.shape[0], k_exp, k_exp), dtype=torch.float64, device=dev)
+    return mesh.all_reduce(gram)
 
 
 def fused_gb_linear_map_streamed(
@@ -311,12 +347,16 @@ def fused_gb_linear_map_streamed(
     memory. Constraint frames are sampled up front from the stream's frame
     count (the in-memory fit's draw) and gathered from disk directly; the
     solve, its check and the float64 escalation are the in-memory fit's.
+
+    With ``mesh`` each rank streams its chunks (its ``frame_slice``, or
+    every n-th chunk) and one all-reduce sums the float64 Grams; the
+    constraint frames are rank 0's draw, and the solve and its escalation
+    (on the reduced Gram) run replicated, so every rank returns the same map.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+    fm = as_frame_mesh(mesh) if mesh is not None else None
     if constraints is None:
         constraints = set()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if fm is None else mesh_device(fm, device)
     # the group factorization is a function of the topology: no data read
     geom = group_factorization(coord_map, spec, constraints)
     consts = tuple(
@@ -329,12 +369,14 @@ def fused_gb_linear_map_streamed(
     # float64 Grams: the float32 solve takes them rounded, the float64
     # escalation as they are
     gram = _regularized(
-        streamed_site_grams(stream, consts, kbt, spec, frame_slice),
+        streamed_site_grams(stream, consts, kbt, spec, frame_slice, fm),
         float(l2_regularization),
     )
     rng = constraint_rng if constraint_rng is not None else np.random.default_rng()
     n_cf = min(n_constraint_frames, stream.n_frames)
     frame_idx = rng.choice(stream.n_frames, size=n_cf, replace=False)
+    if fm is not None:
+        frame_idx = fm.broadcast_array(frame_idx)
     constr_coords = torch.as_tensor(
         stream.gather_frames(frame_idx), dtype=torch.float32, device=dev
     )

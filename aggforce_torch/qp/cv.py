@@ -39,18 +39,31 @@ from ..constraints import Constraints
 from ..map import LinearMap
 from ..ops.eqp import batched_eqp_solve_auglag, eqp_solve_host
 from ..ops.gram import site_grams
+from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
-from .fusedfeat import _constraint_system, _prepare_fused_setup, _site_gram
+from .fusedfeat import (
+    _constraint_system,
+    _fit_constants,
+    _frames_at,
+    _prepare_fused_setup,
+    _site_gram,
+)
 from .qplinear import _linear_gram, _reduced, constraint_labels, fit_routes
 
 
 def _fold_segments(
-    n_frames: int, n_folds: int, rng: Optional[np.random.Generator]
+    n_frames: int,
+    n_folds: int,
+    rng: Optional[np.random.Generator],
+    mesh: Optional[FrameMesh] = None,
 ) -> List[np.ndarray]:
-    """Shuffled frame-index folds (same construction as the generic refit loop)."""
+    """Shuffled frame-index folds (same construction as the generic refit
+    loop); with ``mesh``, rank 0's shuffle on every rank."""
     frames = np.arange(n_frames)
     (rng if rng is not None else np.random.default_rng()).shuffle(frames)
+    if mesh is not None:
+        frames = mesh.broadcast_array(frames)
     return np.array_split(frames, n_folds)
 
 
@@ -215,24 +228,32 @@ def linear_map_cv(
     solve reports an equilibrated constraint violation above ``resid_tol``
     are recomputed with the float64 oracle (small systems — the Gram pass,
     the expensive part, is reused).
+
+    With ``mesh`` (``parallel.make_mesh``) the folds are rank 0's shuffle,
+    each rank uploads and reduces only its share of every fold's frames, and
+    one all-reduce sums the fold Grams; the solves, scores and escalations
+    then run replicated, so every rank returns the same table.
     """
     del coords  # constraints are supplied explicitly; coords unused
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device CV is not ported yet (ROADMAP Queue 1 item 13)"
-        )
-    dev = resolve_device(device, forces)
+    fm = as_frame_mesh(mesh) if mesh is not None else None
+    dev = resolve_device(device, forces) if fm is None else mesh_device(fm, device)
     labels_np, r = constraint_labels(coord_map.n_fg_sites, constraints)
-    folds = _fold_segments(forces.shape[0], n_folds, rng)
+    folds = _fold_segments(forces.shape[0], n_folds, rng, fm)
 
     f32 = dict(dtype=torch.float32, device=dev)
     labels = torch.as_tensor(labels_np, dtype=torch.int64, device=dev)
-    forces_dev = torch.as_tensor(forces, device=dev).to(torch.float32)
     # per-fold heldout Grams, one fold's frames at a time
-    grams = torch.stack([
-        _linear_gram(forces_dev[torch.as_tensor(idx, device=dev)], labels, r)
-        for idx in folds
-    ])  # (k, R, R)
+    if fm is None:
+        forces_dev = torch.as_tensor(forces, device=dev).to(torch.float32)
+        grams = torch.stack([
+            _linear_gram(forces_dev[torch.as_tensor(idx, device=dev)], labels, r)
+            for idx in folds
+        ])  # (k, R, R)
+    else:
+        grams = fm.all_reduce(torch.stack([
+            _linear_gram(shard_frames(fm, [forces], idx, pad=False)[0], labels, r)
+            for idx in folds
+        ]))
 
     a_mat = _reduced(
         torch.as_tensor(np.asarray(coord_map.standard_matrix), **f32), labels, r
@@ -286,6 +307,7 @@ def _featurized_cv_problem(
     rng: np.random.Generator,
     device: DeviceLike = None,
     gram_fn=site_grams,
+    mesh: Optional[FrameMesh] = None,
 ):
     """The featurized CV's device problem: (heldout Grams (k, S, K, K),
     constraint rows (k, S, m, K), targets (k, S, m), folds, each fold's
@@ -298,10 +320,12 @@ def _featurized_cv_problem(
     (the Gram kernel by default) on that fold's frames, gathered and padded
     to the longest fold with masked frames, through the fit's own
     :func:`fusedfeat._site_gram`, so it lies in the layout of the
-    constraint rows.
+    constraint rows. With ``mesh`` the folds and samples are rank 0's, each
+    rank's launch takes its share of the fold's padded frames (the only
+    frames it uploads), and one all-reduce sums the fold Grams.
     """
     t = forces.shape[0]
-    folds = _fold_segments(t, n_folds, rng)
+    folds = _fold_segments(t, n_folds, rng, mesh)
     min_train = min(t - len(idx) for idx in folds)
     n_cf = min(n_constraint_frames, min_train)
     samples = np.stack([
@@ -311,13 +335,32 @@ def _featurized_cv_problem(
         )
         for f in range(n_folds)
     ])
-    setup = _prepare_fused_setup(
-        Trajectory(coords=coords, forces=forces), coord_map, spec, constraints, device
-    )
+    if mesh is not None:  # each fold's share is uploaded below
+        setup = _fit_constants(coord_map, spec, constraints, mesh_device(mesh, device))
+    else:
+        setup = _prepare_fused_setup(
+            Trajectory(coords=coords, forces=forces), coord_map, spec, constraints, device
+        )
     dev = setup["device"]
     cmap, gmean, onehot, counts, centers = setup["consts"]
-    coords_dev, forces_dev = setup["trajectory"]
     pad_len = max(len(idx) for idx in folds)
+    if mesh is not None:
+        samples = mesh.broadcast_array(samples)
+        pad_len = -(-pad_len // mesh.size) * mesh.size
+        grams = torch.stack([
+            _site_gram(
+                *shard_frames(mesh, [coords, forces], idx, length=pad_len),
+                cmap, gmean, onehot, counts, centers, float(kbt), spec, gram_fn,
+            )
+            for idx in folds
+        ])
+        rows, b_all = _constraint_system(
+            _frames_at(coords, samples.reshape(-1), dev),
+            torch.arange(samples.size, device=dev).reshape(samples.shape),
+            cmap, gmean, onehot, counts, centers, spec,
+        )
+        return mesh.all_reduce(grams), rows, b_all, folds, samples
+    coords_dev, forces_dev, _ = setup["trajectory"]
     sel = np.zeros((n_folds, pad_len), dtype=np.int64)
     mask = np.zeros((n_folds, pad_len), dtype=np.float32)
     for f, idx in enumerate(folds):
@@ -370,16 +413,19 @@ def fused_gb_cv(
     ``resid_tol``, NaN-aware) escalate exactly those (l2, fold) cells to the
     float64 oracle, reusing the device Grams; they are counted in
     ``qplinear.fit_routes["cv_escalated_cells"]``.
+
+    With ``mesh`` (``parallel.make_mesh``) each fold's Gram is sharded over
+    the ranks' frames (the kernel once per fold per rank) and summed by one
+    all-reduce; folds and constraint samples are rank 0's draws, and the
+    solves, scores and escalations run replicated, so every rank returns the
+    same table.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device CV is not ported yet (ROADMAP Queue 1 item 13)"
-        )
+    fm = as_frame_mesh(mesh) if mesh is not None else None
     if rng is None:
         rng = np.random.default_rng()
     grams, rows, b_all, folds, _ = _featurized_cv_problem(
         coords, forces, coord_map, constraints, kbt, spec, n_folds,
-        n_constraint_frames, rng, device,
+        n_constraint_frames, rng, device, mesh=fm,
     )
     # every (l2, fold, site) fit + score: one solve per memory block. Live
     # factors per problem: the augmented operator and its Cholesky (~3 K^2

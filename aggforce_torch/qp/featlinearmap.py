@@ -42,6 +42,7 @@ import torch
 from ..constraints import Constraints, reduce_constraint_sets
 from ..map import CLAFTMap, CLAMap, LinearMap
 from ..ops.eqp import eqp_solve_auglag, eqp_solve_host
+from ..parallel.mesh import agree_seed, as_frame_mesh
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
 from .qplinear import DEVICE_REFINE_ITERS, SolverOptions, _host_array, _solver_opts
@@ -259,11 +260,15 @@ def qp_feat_linear_map(
     coordinates, each site's Gram is accumulated on ``device`` in frame
     chunks, and each site's QP is solved there in float32 ("device", the
     default) or on the host in float64 ("host").
+
+    ``mesh`` (``parallel.make_mesh``) shards the fused fit's frame axis over
+    the ranks; the protocol path fits every frame on each rank, as the JAX
+    package's ignores the mesh (a ``mesh`` that is not one still raises).
+    Its constraint frames are drawn from rank 0's seed when
+    ``constraint_rng`` is None, so every rank returns the same map.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
-        )
+        mesh = as_frame_mesh(mesh)
     if constraints is None:
         constraints = set()
     opts = _solver_opts(dict(solver_args) if solver_args else None)
@@ -282,9 +287,12 @@ def qp_feat_linear_map(
                 n_constraint_frames=n_constraint_frames,
                 l2_regularization=l2_regularization,
                 constraint_rng=constraint_rng,
+                mesh=mesh,
                 device=device,
             )
 
+    if mesh is not None and constraint_rng is None:
+        constraint_rng = np.random.default_rng(agree_seed(mesh, None))
     dev = resolve_device(device, traj.coords, traj.forces)
     forces = _host_array(traj.forces)
     feat_results = featurizer(_host_array(traj.coords), coord_map, constraints)

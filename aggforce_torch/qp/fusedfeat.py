@@ -17,6 +17,11 @@ host oracle when the float32 solve is not converged.
 :func:`fused_gb_linear_map_batch` fits one map per constraint-sample seed
 and shares one Gram among the seeds of a window.
 
+Each fit takes a ``mesh`` (``parallel.make_mesh``, one process per device):
+the frame axis is then split over the ranks, each rank runs the Gram on its
+share and one all-reduce sums the per-site Grams before the replicated
+solve; the site-blocked fit splits its site blocks over the ranks instead.
+
 Every product here runs at full float32 precision whatever TF32 setting the
 process has chosen (``utils.device.full_fp32()`` scopes the entry points and
 the helpers that take products), as the JAX code's ``precision="highest"``.
@@ -47,6 +52,13 @@ from ..ops.gram import (
     site_grams_tiled,
     site_grams_tiled_plain,
     unpack_gram,
+)
+from ..parallel.mesh import (
+    FrameMesh,
+    as_frame_mesh,
+    batched_eqp_solve_shared_mesh,
+    mesh_device,
+    shard_frames,
 )
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
@@ -266,22 +278,25 @@ def _fit_parts(
     tiled: bool = False,
     cmap_rows: Optional[torch.Tensor] = None,
     site_sel: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-site QP assembly: (gram, constraint rows, targets).
 
     The counterpart of the JAX package's ``_pallas_fit_parts``: the Gram of
     :func:`_site_gram` (``gram_fn``, ``tiled``) plus the l2 term, and the
     constraint system. ``cmap_rows``/``site_sel`` fit one site block (see
-    :func:`_assemble_constraint_system`).
+    :func:`_assemble_constraint_system`). ``reduce`` sums the Gram of this
+    rank's frames over the ranks of a mesh (``FrameMesh.all_reduce``; the
+    JAX package's ``_pallas_mesh_fit_parts``) before the l2 term.
     """
     rows_map = cmap_mat if cmap_rows is None else cmap_rows
-    gram = _regularized(
-        _site_gram(
-            coords, forces, mask, rows_map, group_mean, onehot, counts, centers,
-            kbt, spec, gram_fn, tiled,
-        ),
-        l2_regularization,
+    gram = _site_gram(
+        coords, forces, mask, rows_map, group_mean, onehot, counts, centers,
+        kbt, spec, gram_fn, tiled,
     )
+    if reduce is not None:
+        gram = reduce(gram)
+    gram = _regularized(gram, l2_regularization)
     a_rows, b = _assemble_constraint_system(
         constr_coords, cmap_mat, group_mean, onehot, counts, centers, spec,
         cmap_rows=cmap_rows, site_sel=site_sel,
@@ -292,29 +307,31 @@ def _fit_parts(
 def _fit_coefs(
     coords: torch.Tensor,  # (T, N, 3) float32 on the fit's device
     forces: torch.Tensor,
-    frame_idx: torch.Tensor,  # (F,) constraint-frame indices
+    mask: torch.Tensor,  # (T,)
+    constr_coords: torch.Tensor,  # (F, N, 3) the constraint frames
     cmap_mat, group_mean, onehot, counts, centers, kbt, l2_regularization,
     spec: GBFeatSpec, solver_delta: float, solver_iters: int,
     gram_fn: Callable,
     tiled: bool = False,
     cmap_rows: Optional[torch.Tensor] = None,
     site_sel: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable] = None,
 ):
-    """Whole fit of all sites, or of one site block: constraint-frame
-    gather, Gram/constraint assembly and the shared-factor KKT solve (the
-    JAX package's ``_fit_coefs_e2e`` and ``_fit_coefs`` in one, and with
-    ``cmap_rows``/``site_sel`` its ``_siteblock_fit_body`` and
-    ``_fit_coefs_siteblock_e2e``).
+    """Whole fit of all sites, or of one site block: Gram/constraint
+    assembly and the shared-factor KKT solve (the JAX package's
+    ``_fit_coefs_e2e`` and ``_fit_coefs`` in one, with ``cmap_rows``/
+    ``site_sel`` its ``_siteblock_fit_body`` and
+    ``_fit_coefs_siteblock_e2e``, and with ``reduce`` the mesh fit of
+    ``_pallas_mesh_fit_parts``, see :func:`_fit_parts`).
 
     Returns (coefs (Sb, K_exp), per-site residuals (Sb,), gram, a_rows, b),
     all on the device; the QP pieces are fetched only if the float64
     escalation needs them.
     """
-    mask = torch.ones(coords.shape[0], dtype=coords.dtype, device=coords.device)
     gram, a_rows, b = _fit_parts(
-        coords, forces, mask, coords[frame_idx], cmap_mat, group_mean, onehot,
+        coords, forces, mask, constr_coords, cmap_mat, group_mean, onehot,
         counts, centers, kbt, l2_regularization, spec, gram_fn, tiled,
-        cmap_rows, site_sel,
+        cmap_rows, site_sel, reduce,
     )
     coefs, resids = _solve_parts(gram, a_rows, b, solver_delta, solver_iters)
     return coefs, resids, gram, a_rows, b
@@ -684,41 +701,71 @@ def _package_fused_map(
     )
 
 
-def _prepare_fused_setup(
-    traj: Trajectory,
+def _fit_constants(
     coord_map: LinearMap,
     spec: GBFeatSpec,
     constraints: Optional[Constraints],
-    device: DeviceLike,
+    dev: torch.device,
 ) -> dict:
-    """Shared fit setup, the JAX package's ``_prepare_fused_setup`` without
-    its padding plan and Pallas policy (the kernels mask the ragged frame
-    edge): the fit's device, the group factorization (``onehot``,
-    ``group_mean``, ``counts``, ``centers``), the frame count ``t``, the
-    float32 trajectory on the device (``trajectory``: coords, forces) and
-    the fit constants uploaded once (``consts``: cmap, group_mean, onehot,
-    counts, centers)."""
-    dev = resolve_device(device, traj.coords, traj.forces)
+    """The group factorization (``onehot``, ``group_mean``, ``counts``,
+    ``centers``), the fit's ``device`` and the fit constants uploaded once
+    to it (``consts``: cmap, group_mean, onehot, counts, centers)."""
     geom = group_factorization(
         coord_map, spec, constraints if constraints is not None else set()
     )
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
     return dict(
         geom,
         device=dev,
-        t=len(traj),
-        trajectory=(f32(traj.coords), f32(traj.forces)),
         consts=tuple(
-            f32(x)
+            torch.as_tensor(x, dtype=torch.float32, device=dev)
             for x in (
                 coord_map.standard_matrix, geom["group_mean"], geom["onehot"],
                 geom["counts"], geom["centers"],
             )
         ),
     )
+
+
+def _prepare_fused_setup(
+    traj: Trajectory,
+    coord_map: LinearMap,
+    spec: GBFeatSpec,
+    constraints: Optional[Constraints],
+    device: DeviceLike,
+    mesh: Optional[FrameMesh] = None,
+) -> dict:
+    """Shared fit setup, the JAX package's ``_prepare_fused_setup`` without
+    its padding plan and Pallas policy (the kernels mask the ragged frame
+    edge): :func:`_fit_constants`, the frame count ``t`` and the float32
+    trajectory on the device with its frame mask (``trajectory``: coords,
+    forces, mask).
+
+    With ``mesh`` the fit runs on the mesh's device and ``trajectory`` is
+    this rank's padded share of the frames (:func:`parallel.mesh.shard_frames`),
+    the pad masked."""
+    if mesh is not None:
+        dev = mesh_device(mesh, device)
+    else:
+        dev = resolve_device(device, traj.coords, traj.forces)
+    out = dict(_fit_constants(coord_map, spec, constraints, dev), t=len(traj))
+    if mesh is not None:
+        out["trajectory"] = shard_frames(mesh, [traj.coords, traj.forces])
+    else:
+        coords = torch.as_tensor(traj.coords, dtype=torch.float32, device=dev)
+        forces = torch.as_tensor(traj.forces, dtype=torch.float32, device=dev)
+        mask = torch.ones(coords.shape[0], dtype=torch.float32, device=dev)
+        out["trajectory"] = (coords, forces, mask)
+    return out
+
+
+def _frames_at(x, frame_idx: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Frames ``frame_idx`` of an array or tensor, float32 on ``dev`` (only
+    those frames are copied)."""
+    if isinstance(x, torch.Tensor):
+        x = x[torch.as_tensor(frame_idx, device=x.device)]
+    else:
+        x = np.asarray(x[frame_idx])
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
 @full_fp32()
@@ -757,12 +804,19 @@ def fused_gb_linear_map(
     float64 LAPACK oracle. The achieved residual is recorded in the returned
     map's tags (``tags["solver_resid"]``), and whether the fit escalated in
     ``tags["escalated"]``.
+
+    With ``mesh`` (``parallel.make_mesh``, 1-D over "frames"; every rank
+    calls with the whole trajectory) each rank uploads only its contiguous
+    share of the frame axis, padded to a multiple of the mesh size with
+    masked frames, runs the Gram on it (the kernel on the card), and one
+    all-reduce sums the per-site Grams; the constraint frames are rank 0's
+    draw, and the constraint system, the solve and its escalation run
+    replicated, so every rank returns the same map. ``device`` must then be
+    None or the mesh's device. On one rank the result is the single-device
+    fit's, bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
-        )
-    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device)
+    fm = as_frame_mesh(mesh) if mesh is not None else None
+    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device, fm)
     dev = setup["device"]
     gram_fn = _gram_function(use_kernel, dev, chunk_size)
     rng = constraint_rng if constraint_rng is not None else np.random.default_rng()
@@ -770,11 +824,15 @@ def fused_gb_linear_map(
     # exist, so clamp (every frame then anchors the orthogonality rows)
     n_constraint_frames = min(n_constraint_frames, setup["t"])
     frame_idx = rng.choice(setup["t"], size=n_constraint_frames, replace=False)
-    coords, forces = setup["trajectory"]
+    coords, forces, mask = setup["trajectory"]
+    if fm is None:
+        constr_coords = coords[torch.as_tensor(frame_idx, device=dev)]
+    else:
+        constr_coords = _frames_at(traj.coords, fm.broadcast_array(frame_idx), dev)
     coefs, resids, gram, a_rows, b = _fit_coefs(
-        coords, forces, torch.as_tensor(frame_idx, device=dev), *setup["consts"],
+        coords, forces, mask, constr_coords, *setup["consts"],
         float(kbt), float(l2_regularization), spec, solver_delta, solver_iters,
-        gram_fn,
+        gram_fn, reduce=None if fm is None else fm.all_reduce,
     )
     return _package_fused_map(
         coefs, torch.amax(resids), gram, a_rows, b, coord_map, setup["onehot"],
@@ -830,18 +888,28 @@ def fused_gb_linear_map_blocked(
     ``tags["solver_resid"]`` is the max residual over sites after
     escalation, ``tags["escalated"]`` the number of escalated sites and
     ``tags["escalation_seconds"]`` the host time their solves took.
+
+    With ``mesh`` (``parallel.make_mesh``) the site blocks are split over
+    the ranks: each step fits ``site_block * n_ranks`` sites, one block per
+    rank (the tiled kernel on each rank's block), on the whole trajectory
+    uploaded to every rank. The blocks are independent, so no collective
+    runs until the end, where one all-gather gives every rank every site's
+    coefficients (after its owner's per-site escalation), and every rank
+    returns the same map. The constraint frames are rank 0's draw.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
-        )
-    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device)
+    fm = as_frame_mesh(mesh) if mesh is not None else None
+    setup = _prepare_fused_setup(
+        traj, coord_map, spec, constraints,
+        device if fm is None else mesh_device(fm, device),
+    )
     dev = setup["device"]
     gram_fn = _gram_function(use_kernel, dev, chunk_size, tiled=True)
     onehot, centers = setup["onehot"], setup["centers"]
     rng = constraint_rng if constraint_rng is not None else np.random.default_rng()
     n_constraint_frames = min(n_constraint_frames, setup["t"])
     frame_idx = rng.choice(setup["t"], size=n_constraint_frames, replace=False)
+    if fm is not None:
+        frame_idx = fm.broadcast_array(frame_idx)
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -849,41 +917,45 @@ def fused_gb_linear_map_blocked(
     cmap_np = np.asarray(coord_map.standard_matrix, dtype=np.float32)
     s_all = cmap_np.shape[0]
     sb = max(1, min(site_block, s_all))
-    coords, forces = setup["trajectory"]
-    frame_idx_dev = torch.as_tensor(frame_idx, device=dev)
+    n_rank, rank = (1, 0) if fm is None else (fm.size, fm.rank)
+    step_sites = sb * n_rank  # sites per step: one block per rank
+    coords, forces, mask = setup["trajectory"]
+    constr_coords = coords[torch.as_tensor(frame_idx, device=dev)]
     common = (
         *setup["consts"], float(kbt), float(l2_regularization), spec,
         solver_delta, solver_iters, gram_fn,
     )
     pipelined = os.environ.get("AGGFORCE_SWEEP_PIPELINE", "1") == "1"
-    coefs_blocks = []
-    resid_max = 0.0
-    escalated = 0
+    # this rank's blocks, all sb rows each (padding included, so every
+    # rank's stack has one shape): coefficients, residual, escalated flag
+    rows_blocks = []
     escalation_s = 0.0
 
     def drain(entry) -> None:
-        nonlocal resid_max, escalated, escalation_s
-        idx, coefs_b, resid_b, gram_b, rows_b, b_b = entry
-        coefs_np = np.array(coefs_b.cpu())[: len(idx)]
-        resid_np = np.array(resid_b.cpu())[: len(idx)]
+        nonlocal escalation_s
+        n_valid, coefs_b, resid_b, gram_b, rows_b, b_b = entry
+        coefs_np = np.array(coefs_b.cpu())
+        resid_np = np.array(resid_b.cpu())
         bad = ~np.isfinite(coefs_np).all(axis=1) | ~(resid_np <= resid_tol)  # NaN-aware
+        bad[n_valid:] = False  # padding sites are dropped, never escalated
         if bad.any():
             t0 = time.perf_counter()
             sel = torch.as_tensor(np.nonzero(bad)[0], device=gram_b.device)
             coefs_np[bad], resid_np[bad] = _host_solve(gram_b[sel], rows_b[sel], b_b[sel])
-            escalated += int(bad.sum())
             escalation_s += time.perf_counter() - t0
-        coefs_blocks.append(coefs_np)
-        resid_max = max(resid_max, float(resid_np.max()))
+        rows_blocks.append(np.concatenate([coefs_np, resid_np[:, None], bad[:, None]], axis=1))
 
     pending = None
-    for s0 in range(0, s_all, sb):
-        idx = np.arange(s0, min(s0 + sb, s_all))
-        pad_idx = np.concatenate([idx, np.repeat(idx[-1:], sb - len(idx))])
+    for s0 in range(0, s_all, step_sites):
+        # the step's sites, padded by repeating its last one; this rank's
+        # block is its slice
+        step = np.arange(s0, min(s0 + step_sites, s_all))
+        pad_idx = np.concatenate([step, np.repeat(step[-1:], step_sites - len(step))])
+        pad_idx = pad_idx[rank * sb : (rank + 1) * sb]
         sel = np.zeros((sb, s_all), dtype=np.float32)
         sel[np.arange(sb), pad_idx] = 1.0
-        entry = (idx,) + _fit_coefs(
-            coords, forces, frame_idx_dev, *common, tiled=True,
+        entry = (int(np.clip(len(step) - rank * sb, 0, sb)),) + _fit_coefs(
+            coords, forces, mask, constr_coords, *common, tiled=True,
             cmap_rows=f32(cmap_np[pad_idx]), site_sel=f32(sel),
         )
         if pending is not None:
@@ -896,15 +968,26 @@ def fused_gb_linear_map_blocked(
         del entry
     if pending is not None:
         drain(pending)
-    coefs_all = np.concatenate(coefs_blocks, axis=0)
+    rows_all = np.concatenate(rows_blocks, axis=0)
+    if fm is not None:
+        # the one collective of the fit: every rank's blocks, put back in
+        # site order (step, rank, site of the block)
+        cols = rows_all.shape[-1]
+        gathered = fm.all_gather(f32(rows_all)).cpu().numpy()
+        rows_all = gathered.reshape(n_rank, -1, sb, cols).transpose(1, 0, 2, 3).reshape(-1, cols)
+        escalation_s = float(
+            fm.all_reduce(torch.tensor([escalation_s], dtype=torch.float64, device=dev))[0]
+        )
+    rows_all = rows_all[:s_all]
+    coefs_all = np.ascontiguousarray(rows_all[:, :-2])
     if not np.all(np.isfinite(coefs_all)):
         raise ValueError("Map optimization failed.")
     return _wrap_fused_map(
         coefs_all, coord_map, onehot, centers, kbt, spec,
         {
             "coef_list": list(coefs_all),
-            "solver_resid": resid_max,
-            "escalated": escalated,
+            "solver_resid": float(rows_all[:, -2].max()),
+            "escalated": int(rows_all[:, -1].sum()),
             "escalation_seconds": escalation_s,
         },
         dev,
@@ -914,34 +997,45 @@ def fused_gb_linear_map_blocked(
 def _fit_coefs_batch(
     coords: torch.Tensor,  # (T, N, 3) float32 on the fit's device
     forces: torch.Tensor,
+    mask: torch.Tensor,  # (T,)
+    constr_src: torch.Tensor,  # (T', N, 3) the frames frame_idx_batch indexes
     frame_idx_batch: torch.Tensor,  # (B, F) constraint-frame indices per fit
     cmap_mat, group_mean, onehot, counts, centers, kbt, l2_regularization,
     spec: GBFeatSpec, solver_delta: float, solver_iters: int,
     gram_fn: Callable,
+    mesh: Optional[FrameMesh] = None,
 ):
     """B fits over the same trajectory with different constraint samples,
-    sharing one Gram (the JAX package's ``_fit_coefs_batch_e2e``).
+    sharing one Gram (the JAX package's ``_fit_coefs_batch_e2e``, and with
+    ``mesh`` its ``_fit_coefs_batch_mesh``).
 
     The Gram does not depend on which frames anchor the orthogonality
     constraints, so it is taken once (:func:`_site_gram`); the B constraint
     systems are assembled together, and one shared-factor solve factors each
     site once for every fit. The solve runs without host checks, so the
-    whole window is enqueued without a host sync. Returns
-    (:func:`_batch_fit_outputs`, gram), all on the device.
+    whole window is enqueued without a host sync. With ``mesh`` the Gram is
+    this rank's frames' summed over the ranks, and the solve is
+    :func:`parallel.mesh.batched_eqp_solve_shared_mesh` (sites, then fits, split
+    over the ranks). Returns (:func:`_batch_fit_outputs`, gram), all on the
+    device.
     """
-    mask = torch.ones(coords.shape[0], dtype=coords.dtype, device=coords.device)
-    gram = _regularized(
-        _site_gram(
-            coords, forces, mask, cmap_mat, group_mean, onehot, counts, centers,
-            kbt, spec, gram_fn,
-        ),
-        l2_regularization,
+    gram = _site_gram(
+        coords, forces, mask, cmap_mat, group_mean, onehot, counts, centers,
+        kbt, spec, gram_fn,
     )
+    if mesh is not None:
+        gram = mesh.all_reduce(gram)
+    gram = _regularized(gram, l2_regularization)
     rows_b, b_b = _constraint_system(
-        coords, frame_idx_batch, cmap_mat, group_mean, onehot, counts, centers,
+        constr_src, frame_idx_batch, cmap_mat, group_mean, onehot, counts, centers,
         spec,
     )
-    coefs_b, resid_fs = batched_eqp_solve_shared(
+    solve = (
+        batched_eqp_solve_shared
+        if mesh is None
+        else partial(batched_eqp_solve_shared_mesh, mesh=mesh)
+    )
+    coefs_b, resid_fs = solve(
         gram, rows_b, b_b[..., None], delta=solver_delta, iters=solver_iters,
         return_resid=True, host_checks=False,
     )
@@ -1140,15 +1234,18 @@ def fused_gb_linear_map_batch(
     device inside the maps, and ``tags["coef_list"]`` fetches them on first
     read (``_LazyCoefTags``). A tail window is padded to ``flush_every`` fits,
     with a warning when more than half of it is padding.
+
+    With ``mesh`` each window's Gram is frame-sharded as in
+    :func:`fused_gb_linear_map` (the kernel once per rank per window, one
+    all-reduce), and the window's solve is split over the ranks (sites for
+    the factorization, fits for the Schur stage); the constraint frames are
+    rank 0's draws, so every rank returns the same maps.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device batch fits are not ported yet (ROADMAP Queue 1 item 13)"
-        )
     seeds = list(seeds)
     if not seeds:
         return []
-    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device)
+    fm = as_frame_mesh(mesh) if mesh is not None else None
+    setup = _prepare_fused_setup(traj, coord_map, spec, constraints, device, fm)
     dev = setup["device"]
     gram_fn = _gram_function(use_kernel, dev, chunk_size)
     onehot, centers = setup["onehot"], setup["centers"]
@@ -1156,8 +1253,14 @@ def fused_gb_linear_map_batch(
     n_cf = min(n_constraint_frames, setup["t"])
     # every window's indices in one upload, before any work is enqueued
     idx_np = _window_indices(seeds, setup["t"], n_cf, window)
-    idx_dev = torch.as_tensor(idx_np, device=dev)
-    coords, forces = setup["trajectory"]
+    coords, forces, mask = setup["trajectory"]
+    if fm is None:
+        constr_src, idx_dev = coords, torch.as_tensor(idx_np, device=dev)
+    else:
+        # only the constraint frames of every window are uploaded
+        idx_np = fm.broadcast_array(idx_np)
+        constr_src = _frames_at(traj.coords, idx_np.reshape(-1), dev)
+        idx_dev = torch.arange(idx_np.size, device=dev).reshape(idx_np.shape)
     consts = setup["consts"]
     # one set of map constants and one device coordinate map for every map
     cmap_np = np.asarray(coord_map.standard_matrix, dtype=np.float32)
@@ -1172,8 +1275,9 @@ def fused_gb_linear_map_batch(
 
     def dispatch(w: int):
         (coefs_b, resid_b, finite_b), gram = _fit_coefs_batch(
-            coords, forces, idx_dev[w], *consts, float(kbt),
+            coords, forces, mask, constr_src, idx_dev[w], *consts, float(kbt),
             float(l2_regularization), spec, solver_delta, solver_iters, gram_fn,
+            fm,
         )
         n_valid = min(len(seeds) - w * window, idx_np.shape[1])
         return (w, n_valid, coefs_b, gram) + tuple(_fetch_async(resid_b, finite_b))
@@ -1199,7 +1303,7 @@ def fused_gb_linear_map_batch(
             # escalation: recompute this fit's constraint system and take
             # the single fit's float64 packaging path
             rows, b = _constraint_system(
-                coords, idx_dev[w, i], cmap_dev, gmean_dev, onehot_dev,
+                constr_src, idx_dev[w, i], cmap_dev, gmean_dev, onehot_dev,
                 counts_dev, centers_dev, spec,
             )
             if gram_h is None:

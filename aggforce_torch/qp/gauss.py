@@ -38,6 +38,7 @@ from ..map import (
     TLinearMap,
     lmap_augvariables,
 )
+from ..parallel.mesh import agree_seed, as_frame_mesh, mesh_device
 from ..trajectory import (
     AugmentedTrajectory,
     CoordsTrajectory,
@@ -57,11 +58,14 @@ def _noise_site_slice_map(n_total_sites: int, n_aug_sites: int) -> LinearMap:
     return LinearMap(mapping=preserved, n_fg_sites=n_total_sites)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
-        )
+def _mesh_seed(mesh, seed, device):
+    """(mesh, seed, device) of a builder called with ``mesh``: the checked
+    mesh, rank 0's seed (so every rank draws the same noise) and the mesh's
+    device. Without a mesh, the arguments as given."""
+    if mesh is None:
+        return None, seed, device
+    fm = as_frame_mesh(mesh)
+    return fm, agree_seed(fm, seed), mesh_device(fm, device)
 
 
 def _given_premap(coord_map: LinearMap, force_map: LinearMap, traj, dev) -> SeperableTMap:
@@ -90,7 +94,13 @@ def joptgauss_map(
     particles, optimizes a linear force map on the augmented system that
     isolates the virtual sites, and wraps it so application re-noises fresh
     input trajectories. The result is stochastic and non-separable.
+
+    A ``mesh`` in ``kwargs`` goes to the fit (``qp_linear_map``), and every
+    rank draws rank 0's seed.
     """
+    fm, seed, device = _mesh_seed(kwargs.get("mesh"), seed, device)
+    if fm is not None:
+        kwargs["mesh"] = fm
     dev = resolve_device(device, traj.coords, traj.forces)
     flattened_cmap = TLinearMap.from_linearmap(
         coord_map, bypass_nan_check=True, device=dev
@@ -119,8 +129,10 @@ def _try_staged_fused(
     premap_solver_args,
     kwargs,
     zero_stage2: bool,
+    mesh=None,
 ):
-    """Take the one-sync staged fits when they apply.
+    """Take the one-sync staged fits when they apply (with ``mesh``, their
+    frames sharded over the ranks).
 
     Conditions: float32 tensor trajectory, device-eligible solver options,
     and second-stage kwargs limited to l2/solver knobs. Returns (pre_tmap,
@@ -165,6 +177,7 @@ def _try_staged_fused(
         resid_tol=min(
             pre_opts.get("resid_tol", 1e-4), post_opts.get("resid_tol", 1e-4)
         ),
+        mesh=mesh,
     )
     if fused is None:
         fit_routes["staged_fused_missed"] += 1
@@ -197,8 +210,10 @@ def _post_map(pre_tmap, pmapped_tmap, var, kbt, seed, dev) -> AugmentedTMap:
 def _staged_piecewise(
     traj, coord_map, var, kbt, force_map, constraints, seed,
     premap_l2_regularization, premap_solver_args, dev, kwargs, zero_stage2: bool,
+    mesh=None,
 ):
-    """The piecewise staged fits: (pre_tmap, pmapped_traj, pmapped_tmap)."""
+    """The piecewise staged fits: (pre_tmap, pmapped_traj, pmapped_tmap);
+    ``mesh`` shards the premap fit."""
     if force_map is None:
         pre_tmap = qp_linear_map(
             traj=traj,
@@ -206,6 +221,7 @@ def _staged_piecewise(
             constraints=constraints,
             l2_regularization=premap_l2_regularization,
             solver_args=premap_solver_args,
+            mesh=mesh,
             device=dev,
         )
     else:
@@ -253,14 +269,20 @@ def stagedjoptgauss_map(
     (:mod:`aggforce_torch.qp.gauss_fused`): both fits, the noise draw and
     the real-block premapping are enqueued back to back and read once,
     instead of waiting on each fit and map application.
+
+    With ``mesh`` (``parallel.make_mesh``) every rank draws rank 0's seed;
+    the one-sync fits shard their frames over the ranks (both fits' Grams
+    and the noise check are summed by all-reduces), and the piecewise path
+    shards its premap fit, as the JAX package's does.
     """
-    _no_mesh(mesh)
+    fm, seed, device = _mesh_seed(mesh, seed, device)
     dev = resolve_device(device, traj.coords, traj.forces)
     if premap_solver_args is None:
         premap_solver_args = DEFAULT_SOLVER_OPTIONS
     fused = _try_staged_fused(
         traj, coord_map, var, kbt, force_map, constraints, seed,
         premap_l2_regularization, premap_solver_args, kwargs, zero_stage2=False,
+        mesh=fm,
     )
     if fused is not None:
         pre_tmap, post_tmap, _ = fused
@@ -268,6 +290,7 @@ def stagedjoptgauss_map(
     pre_tmap, _, pmapped_tmap = _staged_piecewise(
         traj, coord_map, var, kbt, force_map, constraints, seed,
         premap_l2_regularization, premap_solver_args, dev, kwargs, zero_stage2=False,
+        mesh=fm,
     )
     post_tmap = _post_map(pre_tmap, pmapped_tmap, var, kbt, seed, dev)
     return ComposedTMap(submaps=[post_tmap, pre_tmap])
@@ -361,8 +384,14 @@ def stagedjforcegauss_map(
     ``contribution_tolerance`` a warning is emitted. float32 tensor
     trajectories take the one-sync fits, with the noise contribution
     computed beside them.
+
+    A ``mesh`` in ``kwargs`` goes to the second-stage fit alone, as in the
+    JAX package (the one-sync fits then do not apply), and every rank draws
+    rank 0's seed.
     """
-    _no_mesh(kwargs.pop("mesh", None))
+    fm, seed, device = _mesh_seed(kwargs.get("mesh"), seed, device)
+    if fm is not None:
+        kwargs["mesh"] = fm
     dev = resolve_device(device, traj.coords, traj.forces)
     if premap_solver_args is None:
         premap_solver_args = DEFAULT_SOLVER_OPTIONS

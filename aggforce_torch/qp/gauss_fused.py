@@ -17,6 +17,11 @@ a generator seeded like the piecewise augmenter's: on one device the two
 paths see the same noise and sum in the same order. A solve that misses the
 residual tolerance returns None, and the piecewise path, which owns the
 float64 escalation, runs instead.
+
+With a ``mesh`` (``parallel.make_mesh``) each rank takes its contiguous
+share of the frames and the same share of the one noise draw (made for every
+frame on every rank, so the draw is the single-device one); both fits' Grams
+and the noise check's sum are all-reduced, and the solves run replicated.
 """
 
 from typing import Optional
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.torchcore import trjdot
+from ..parallel.mesh import shard_frames
 from ..trajectory import gaussian
 from ..utils.device import full_fp32
 from .qplinear import _device_linear_fit, constraint_labels
@@ -44,6 +50,7 @@ def _staged_gauss_program(
     l2_pre: float,
     l2_post: float,
     zero_stage2: bool,
+    reduce=None,
 ):
     """The whole staged-Gaussian fit, enqueued without a host sync.
 
@@ -55,13 +62,15 @@ def _staged_gauss_program(
       remaining scalar mean squared second-stage-mapped force (the noise
               contribution check of ``stagedjforcegauss_map``)
     ``zero_stage2`` runs the augmentation on a zero-force copy (the
-    "force" variant's trick to isolate noise contributions).
+    "force" variant's trick to isolate noise contributions). ``reduce`` sums
+    over the ranks of a mesh (``FrameMesh.all_reduce``) when the frames are
+    this rank's share.
     """
     if fmap1_in is not None:
         fmap1 = fmap1_in
         resid1 = torch.zeros((), dtype=coords.dtype, device=coords.device)
     else:
-        fmap1, resid1 = _device_linear_fit(forces, labels, cmap_mat, l2_pre, r)
+        fmap1, resid1 = _device_linear_fit(forces, labels, cmap_mat, l2_pre, r, reduce)
 
     # the augmentation (pfill=True mirrors the bypass_nan_check premap)
     aug_forces = torch.zeros_like(forces) if zero_stage2 else forces
@@ -86,8 +95,13 @@ def _staged_gauss_program(
         dim=1,
     )
     ident = torch.arange(s_tot, device=pm_f.device)
-    fmap2, resid2 = _device_linear_fit(pm_f, ident, slice_mat, l2_post, s_tot)
-    remaining = torch.mean(torch.square(trjdot(pm_f, fmap2)))
+    fmap2, resid2 = _device_linear_fit(pm_f, ident, slice_mat, l2_post, s_tot, reduce)
+    mapped_sq = torch.square(trjdot(pm_f, fmap2))
+    if reduce is None:
+        remaining = torch.mean(mapped_sq)
+    else:
+        total = reduce(torch.stack([mapped_sq.sum(), mapped_sq.new_tensor(mapped_sq.numel())]))
+        remaining = total[0] / total[1]
     return fmap1, resid1, fmap2, resid2, remaining
 
 
@@ -103,6 +117,7 @@ def staged_gauss_fused(
     l2_regularization: float = 0.0,
     zero_stage2: bool = False,
     resid_tol: float = 1e-4,
+    mesh=None,
 ):
     """Run the staged-Gaussian fits with one host sync; None if they do not apply.
 
@@ -110,7 +125,9 @@ def staged_gauss_fused(
     map. Returns (pre_tmap, pmapped_tmap, remaining) with the structure the
     piecewise builders assemble, or None when the caller should take the
     piecewise path (including when a solve misses ``resid_tol``: the
-    piecewise path owns the float64 escalation).
+    piecewise path owns the float64 escalation). ``mesh`` is a checked
+    ``FrameMesh`` (every rank then passes the whole trajectory and the same
+    ``seed``).
     """
     from ..map import LinearMap, SeperableTMap, TLinearMap
 
@@ -123,18 +140,23 @@ def staged_gauss_fused(
         return None
     if constraints is None:
         constraints = set()
-    dev = forces.device
+    dev = forces.device if mesh is None else mesh.device
     dtype = torch.float32
     s = coord_map.n_cg_sites
     labels_np, r = constraint_labels(coord_map.n_fg_sites, constraints)
     if seed is None:
         seed = int(np.random.default_rng().integers(0, int(1e6)))
-    coords = coords.to(dtype)
-    forces = forces.to(dtype)
     # the piecewise augmenter's first draw: same generator, same layout
     eps = gaussian._standard_normal(
         gaussian.make_generator(seed, dev), (coords.shape[0], s * 3), dev, dtype
     )
+    if mesh is None:
+        coords = coords.to(dtype)
+        forces = forces.to(dtype)
+    else:
+        coords, forces, _ = shard_frames(mesh, [coords, forces], pad=False)
+        lo, _ = mesh.shard_bounds(eps.shape[0])
+        eps = eps[lo : lo + coords.shape[0]]
     fmap1_in = (
         torch.as_tensor(np.asarray(force_map.standard_matrix), dtype=dtype, device=dev)
         if force_map is not None
@@ -153,6 +175,7 @@ def staged_gauss_fused(
         float(premap_l2_regularization),
         float(l2_regularization),
         zero_stage2,
+        None if mesh is None else mesh.all_reduce,
     )
     # ONE device-to-host copy: both maps, both residuals, the noise check
     packed = torch.cat(

@@ -27,6 +27,7 @@ from ..constraints import Constraints, constraint_lookup_dict, reduce_constraint
 from ..map import LinearMap, SeperableTMap, TLinearMap
 from ..ops.core import qp_form
 from ..ops.eqp import eqp_solve_auglag, eqp_solve_host
+from ..parallel.mesh import as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import ForcesTrajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
 
@@ -120,7 +121,7 @@ def _linear_gram(
     t, n, _ = forces.shape
     dtype = forces.dtype if dtype is None else dtype
     n_chunks = max(1, -(-t // FRAME_BLOCK))
-    chunk = -(-t // n_chunks)
+    chunk = max(1, -(-t // n_chunks))  # a mesh rank may hold no frames
     gram = torch.zeros((r, r), dtype=dtype, device=forces.device)
     for start in range(0, t, chunk):
         block = forces[start : start + chunk].to(dtype)
@@ -136,18 +137,21 @@ def _device_linear_fit(
     cmap_mat: torch.Tensor,
     l2_regularization: float,
     r: int,
+    reduce=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Device fit: blockwise Gram + multi-RHS solve + re-expansion.
 
     forces: (T, N, 3); cmap_mat: (n_cg, N). The Gram is
     :func:`_linear_gram`, summed in the forces' dtype (float32 on the main
     path), and every product runs at full precision whatever the process's
-    TF32 setting. Returns the (n_cg, N) force-map matrix and the solver's
-    constraint-violation diagnostic.
+    TF32 setting. ``reduce`` sums the Gram of this rank's frames over the
+    ranks of a mesh (``FrameMesh.all_reduce``). Returns the (n_cg, N)
+    force-map matrix and the solver's constraint-violation diagnostic.
     """
-    return _solve_linear_gram(
-        _linear_gram(forces, labels, r), labels, cmap_mat, l2_regularization, r
-    )
+    gram = _linear_gram(forces, labels, r)
+    if reduce is not None:
+        gram = reduce(gram)
+    return _solve_linear_gram(gram, labels, cmap_mat, l2_regularization, r)
 
 
 @full_fp32()
@@ -232,11 +236,17 @@ def qp_linear_map(
     picks the native backend; ``backend="native"`` raises when its library
     cannot be built. Tensor forces give maps that apply as torch code on their
     device (``TLinearMap``); numpy forces give numpy ``LinearMap`` maps.
+
+    ``mesh`` (``parallel.make_mesh``; every rank calls with all the forces)
+    shards the device fit's frames: each rank uploads and reduces its share,
+    one all-reduce sums the Grams, and the solve and its float64 escalation
+    run replicated, so every rank returns the same map (the JAX package's
+    ``sharded_linear_fit`` route). The host and native backends are
+    single-process and ignore it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
-        )
+    fm = as_frame_mesh(mesh) if mesh is not None else None
+    if fm is not None:
+        device = mesh_device(fm, device)
     if constraints is None:
         constraints = set()
     opts = _solver_opts(dict(solver_args) if solver_args else None)
@@ -275,14 +285,19 @@ def qp_linear_map(
     else:
         dev = resolve_device(device, forces)
         fit_dtype = torch.float64 if out_dtype == np.float64 else torch.float32
+        if fm is None:
+            forces_dev = torch.as_tensor(forces, device=dev).to(fit_dtype)
+        else:
+            forces_dev = shard_frames(fm, [forces], pad=False, dtype=fit_dtype)[0]
         fmap_dev, resid_dev = _device_linear_fit(
-            torch.as_tensor(forces, device=dev).to(fit_dtype),
+            forces_dev,
             torch.as_tensor(labels, dtype=torch.int64, device=dev),
             torch.as_tensor(
                 np.asarray(coord_map.standard_matrix), dtype=fit_dtype, device=dev
             ),
             float(l2_regularization),
             r=reduced_n,
+            reduce=None if fm is None else fm.all_reduce,
         )
         fmap_mat = fmap_dev.cpu().numpy()
         resid_val = float(resid_dev)

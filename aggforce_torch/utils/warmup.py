@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import as_frame_mesh, mesh_device
 from .device import resolve_device
 
 __all__ = [
@@ -42,8 +43,6 @@ __all__ = [
     "warm_gauss_fit",
     "warm_linear_fit",
 ]
-
-_MESH_MESSAGE = "multi-device fits are not ported yet (ROADMAP Queue 1 item 13)"
 
 
 class WarmupHandle:
@@ -147,9 +146,15 @@ def warm_featurized_fit(
 ) -> WarmupHandle:
     """Warm the featurized fit (:func:`aggforce_torch.qp.fusedfeat.fused_gb_linear_map`)
     for the given shapes on ``device`` (default: the GPU): the kernels'
-    build, then one throwaway fit."""
+    build, then one throwaway fit.
+
+    With ``mesh`` the throwaway fit is the mesh fit, on this rank's share of
+    ``n_frames`` (every rank must warm up too: its collectives pair with the
+    other ranks', and the caller's next mesh fit must wait for the handle).
+    """
     if mesh is not None:
-        raise NotImplementedError(_MESH_MESSAGE)
+        mesh = as_frame_mesh(mesh)
+        device = mesh_device(mesh, device)
     dev = resolve_device(device)
 
     def work(phases: dict) -> None:
@@ -162,7 +167,7 @@ def warm_featurized_fit(
             n_constraint_frames=n_constraint_frames,
             l2_regularization=l2_regularization, chunk_size=chunk_size,
             constraint_rng=np.random.default_rng(0), solver_iters=solver_iters,
-            resid_tol=float("inf"), use_kernel=use_kernel, device=dev,
+            resid_tol=float("inf"), use_kernel=use_kernel, mesh=mesh, device=dev,
         )
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

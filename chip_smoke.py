@@ -93,7 +93,7 @@ fails:
    optimized maps correlate above 0.9 and differ below 0.1 (a map with
    M F^T = 1.5 I must fail); (6) with TF32 on, a fit reads the same bits;
    (7) no Gram kernel launches. Then times, a profiled fit and peak memory;
-9. one JSON line listing every kernel, printed after phase 13; the last
+9. one JSON line listing every kernel, printed after phase 14; the last
    line is the result;
 10. the generic featurizer path at config #3 width on 2,000 frames (cut
    from 10,000: it holds each site's (T, N, K_exp) features on the host, as
@@ -122,8 +122,31 @@ fails:
    config-#3 fit in two fresh processes building the kernels from scratch,
    without and with ``warm_featurized_fit`` overlapping a 2 s sleep.
 
+14. the mesh (``aggforce_torch.parallel``): (a) on a world-size-1 NCCL
+   group in this process (``initialize_distributed()`` with no cluster),
+   every mesh entry point at its config's width: config #1 and the config-#3
+   fit through ``project_forces(mesh=)``, the batch fits, the config-#4 CV,
+   ``stagedjoptgauss_map``, both streamed fits, ``warm_featurized_fit`` and
+   the sweep fit, each equal bit for bit to its single-device result and
+   launching the kernels as that path does; (b) two ranks sharing the card
+   over gloo (``--mesh-child`` subprocesses on a FileStore): the config-#3
+   fit (5,000 frames per rank, kernel 1 once on each), the batch fits, the
+   linear CV at config #1 and the config-#4 CV, config #1, the dense
+   ``sharded_linear_fit``, the streamed featurized fit on each rank's
+   ``process_frame_slice`` and the sweep fit (kernel 2 on each rank's
+   blocks). Gates: the ranks' results equal bit for bit; the reduced Gram
+   within 1e-5 of the largest entry of the single-device kernel Gram (rank
+   0's share alone must not be); the config-#3 fit, two batch fits and one
+   sweep block per rank within 1e-4 of their float64 optimum; config #1's
+   mapped forces within 3e-6 relative RMS of the float64 host fit; the CV
+   cells through phase 5's gate on its reduced fold Grams. Each fit's time, peak memory and
+   all-reduces (bytes, seconds) per rank are printed; two ranks on one card
+   show correctness and the collectives' cost, not scaling. Then kernel 1
+   at the per-rank shard shape.
+
 ``python3 chip_smoke.py --warmup-child with|without BUILD_DIR`` is phase
-13's subprocess, not an entry point.
+13's subprocess and ``python3 chip_smoke.py --mesh-child RANK WORLD STORE``
+phase 14's, not entry points.
 
 The fixtures are the JAX bench's standalone geometry (bench.py:290-307),
 its CV and batch shapes (bench.py:783-820, 887-927),
@@ -168,6 +191,12 @@ PEAK_BYTES = 3.35e12
 TF32_PASSES = 3
 # the sweep fit's device-memory ceiling
 SWEEP_PEAK_LIMIT_GIB = 24.0
+# a Gram kernel's timing: device milliseconds it runs first, so the card's
+# clocks have left their idle state (a phase that waits on the host leaves
+# the card idle), and the rounds of launch time and stage probe that
+# alternate after that
+WARM_MS = 300.0
+TIMING_ROUNDS = 3
 # the linear path: orthogonality |M F^T - I|; config #1's mapped forces
 # against the float64 host fit, relative RMS (tests/test_golden.py:62); the
 # linear sweep's (bench.py:310-412) against its float64 witness on the first
@@ -250,6 +279,15 @@ STAGE_F16_LIMIT = 2e-3
 SERIALIZE_REL_LIMIT = 1e-6
 # the host sleep that stands in for loading in the warm-up subprocesses
 WARMUP_SLEEP_S = 2.0
+# phase 14, the mesh: two ranks (processes) sharing the card over gloo, each
+# with half of config #3's frames; the reduced Gram against the
+# single-device kernel Gram, relative to its largest entry (a Gram missing a
+# rank's share lands near 1); the batch fits' windows of 64 seeds; how long
+# a child may run
+MESH_WORLD = 2
+MESH_GRAM_LIMIT = 1e-5
+MESH_BATCH_WINDOWS = 2
+MESH_CHILD_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -457,20 +495,46 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def stage_ms(torch, tiled, args, n_chunks):
-    """Device milliseconds of one launch of a Gram kernel by stage, the row
-    build (``site_grams_build``) and the tensor-core product
-    (``site_grams_product``), each launched once per frame chunk: every
-    launch timed by CUDA events that the C entry records between them
-    (``ops.gram.stage_times``); ``kernel_report`` holds their sum to the
-    launch's time."""
+def warm_card(torch, fn, min_ms=WARM_MS):
+    """Run ``fn`` until at least ``min_ms`` of device time has passed."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    while True:
+        fn()
+        stop.record()
+        stop.synchronize()
+        if start.elapsed_time(stop) >= min_ms:
+            return
+
+
+def launch_and_stage_ms(torch, tiled, fn, args, reps, n_chunks):
+    """Device milliseconds of one launch of a Gram kernel (``fn``, the mean
+    of ``reps`` calls) and of its stages, the row build
+    (``site_grams_build``) and the tensor-core product
+    (``site_grams_product``), each launched once per frame chunk and timed by
+    CUDA events that the C entry records between the launches
+    (``ops.gram.stage_times``). After ``warm_card``, TIMING_ROUNDS rounds
+    each time the launch and then probe its stages, so both see the same
+    clocks; returns the median launch time and the stages of the probe with
+    the median sum, which ``kernel_report`` holds to it."""
+    from statistics import median
+
     from aggforce_torch.ops.gram import stage_times
 
-    torch.cuda.synchronize()
-    build, product = stage_times(tiled, *args)
-    log(f"stages of one launch ({n_chunks} chunks, CUDA events between the "
-        f"launches): build {build:.3f} ms, product {product:.3f} ms")
-    return {"build": build, "product": product}
+    warm_card(torch, fn)
+    launches, probes = [], []
+    for _ in range(TIMING_ROUNDS):
+        launches.append(cuda_ms(torch, fn, reps))
+        torch.cuda.synchronize()
+        probes.append(stage_times(tiled, *args))
+    ms = median(launches)
+    build, product = sorted(probes, key=sum)[len(probes) // 2]
+    log(f"{TIMING_ROUNDS} rounds after {WARM_MS:.0f} ms of warm-up: launch "
+        f"{', '.join(f'{x:.3f}' for x in launches)} ms (mean of {reps}); stages of "
+        f"one launch ({n_chunks} chunks, CUDA events between the launches) "
+        f"{', '.join(f'{b:.3f} + {p:.3f}' for b, p in probes)} ms (build + product)")
+    return ms, {"build": build, "product": product}
 
 
 def kernel_report(name, ms, stages, flops, n_bytes, library_ms, plain_ms):
@@ -677,6 +741,7 @@ def fit_checks(
         failed.append("the objective gate does not reject the planted fault")
     if failed:
         fail("; ".join(failed))
+    return gram, rows
 
 
 def small_input_parity(np):
@@ -785,11 +850,11 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
     log(f"blocked fit at config #3 (site_block=3): solver_resid "
         f"{tags['solver_resid']:.3e}, escalated sites {tags['escalated']}")
     log("config #3 fit against float64 witnesses:")
-    fit_checks(
+    problem64 = fit_checks(
         torch, np, coords, forces, cmap, groups, spec, tmap, plain_map, blocked_map
     )
     small_input_parity(np)
-    return spec, launches, first_fit_s, peak_bytes
+    return spec, launches, first_fit_s, peak_bytes, problem64
 
 
 def featurized_kind(name):
@@ -900,7 +965,6 @@ def gram_kernel_times(torch, ops, n_basis, name):
     )
 
     args = (*ops, n_basis, WIDTH, 1e-3)
-    kernel_ms = cuda_ms(torch, lambda: site_grams(*args), reps=10)
     plain_ms = cuda_ms(torch, lambda: site_grams_plain(*args), reps=3)
     gpos, cg, fg, mask, centers_flat, kcounts = ops
     s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
@@ -918,10 +982,10 @@ def gram_kernel_times(torch, ops, n_basis, name):
         2 * 3 * t * g + cg.numel() + mask.numel() + 2 * k_exp + s_dim * k_exp * k_exp
     )
     n_chunks = -(-t // workspace_shapes(t, s_dim, k_pad)[0])
-    return kernel_report(
-        name, kernel_ms, stage_ms(torch, False, args, n_chunks),
-        flops, n_bytes, library_ms, plain_ms,
+    kernel_ms, stages = launch_and_stage_ms(
+        torch, False, lambda: site_grams(*args), args, 10, n_chunks
     )
+    return kernel_report(name, kernel_ms, stages, flops, n_bytes, library_ms, plain_ms)
 
 
 def sweep_fixture():
@@ -1042,17 +1106,18 @@ def phase_sweep_kernels(torch, block_args, n_basis):
     return max(errs)
 
 
-def sweep_block_gate(torch, np, coords, forces, cmap, groups, spec, coefs):
-    """The sweep fit's first site block against a float64 witness solved on
-    the card, as ``fit_checks`` does at config #3: the fit's objective gap
-    must be <= J_GAP_LIMIT, and a fit on a Gram without the divergence term
-    (solved in float64, so that the fault and not a failed solve is seen)
-    must not pass. The Gram, the constraint rows and the witness are all
-    float64, through the fit's own assembly with the plain tiled Gram."""
+def sweep_block_gate(torch, np, coords, forces, cmap, groups, spec, coefs, first_site=0):
+    """A site block of the sweep fit (by default the first) against a
+    float64 witness solved on the card, as ``fit_checks`` does at config #3:
+    the fit's objective gap must be <= J_GAP_LIMIT, and a fit on a Gram
+    without the divergence term (solved in float64, so that the fault and
+    not a failed solve is seen) must not pass. The Gram, the constraint rows
+    and the witness are all float64, through the fit's own assembly with the
+    plain tiled Gram."""
     from aggforce_torch.ops.eqp import batched_eqp_solve_shared
     from aggforce_torch.qp.fusedfeat import _fit_parts, _gram_function, group_factorization
 
-    block = np.arange(SWEEP_SITE_BLOCK)
+    block = np.arange(first_site, first_site + SWEEP_SITE_BLOCK)
     geom = group_factorization(cmap, spec, set(groups))
     frame_idx = np.random.default_rng(3).choice(SWEEP_FRAMES, size=20, replace=False)
 
@@ -1091,8 +1156,9 @@ def sweep_block_gate(torch, np, coords, forces, cmap, groups, spec, coefs):
     def objective(c):
         return float(torch.einsum("si,sij,sj->", c, gram, c))
 
+    name_fit = f"sweep fit, sites {block[0]}-{block[-1]}"
     coefs = {
-        "sweep fit, block 0 (main path)": dev(coefs[block]),
+        name_fit: dev(coefs[block]),
         "planted fault: no divergence term, float64 solve": c_fault,
     }
     gaps = {}
@@ -1107,8 +1173,8 @@ def sweep_block_gate(torch, np, coords, forces, cmap, groups, spec, coefs):
             f"witness meets the fit's constraint values to {wviol:.2e}")
     del gram, rows, b
     failed = []
-    if not gaps["sweep fit, block 0 (main path)"] <= J_GAP_LIMIT:
-        failed.append("the sweep fit's first block misses its float64 witness")
+    if not gaps[name_fit] <= J_GAP_LIMIT:
+        failed.append(f"the {name_fit} miss their float64 witness")
     if not gaps["planted fault: no divergence term, float64 solve"] > J_GAP_LIMIT:
         failed.append("the sweep objective gate does not reject the planted fault")
     if failed:
@@ -1187,7 +1253,6 @@ def sweep_kernel_times(torch, args, n_basis):
     )
 
     kargs = (*args, n_basis, WIDTH, 1e-3)
-    kernel_ms = cuda_ms(torch, lambda: site_grams_tiled_blocks(*kargs), reps=2)
     plain_ms = cuda_ms(torch, lambda: site_grams_tiled_plain(*kargs), reps=1)
     gpos, cg, fg, mask, centers, kbt_counts = args
     s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
@@ -1215,10 +1280,11 @@ def sweep_kernel_times(torch, args, n_basis):
         f"{one_site_bmm_ms:.3f} ms")
     tc, scratch_shape, running_shape = workspace_shapes(t, s_dim, k_pad)
     n_chunks = -(-t // tc)
+    kernel_ms, stages = launch_and_stage_ms(
+        torch, True, lambda: site_grams_tiled_blocks(*kargs), kargs, 2, n_chunks
+    )
     report = kernel_report(
-        "site_grams_tiled", kernel_ms,
-        stage_ms(torch, True, kargs, n_chunks), flops,
-        n_bytes, library_ms, plain_ms,
+        "site_grams_tiled", kernel_ms, stages, flops, n_bytes, library_ms, plain_ms,
     )
     # what the two stages move: the build writes each chunk's K-major rows
     # once; each 128x128 product tile reads one or two 128-column panels of
@@ -1264,7 +1330,12 @@ def phase_sweep(torch, np, smi):
     log(f"sweep phase {time.perf_counter() - t0:.3f} s; sweep fit peak device "
         f"memory {peak_bytes / 2**30:.2f} GiB; {SWEEP_FRAMES / second_s:.1f} "
         f"frames/s ({smi})")
-    return launches, max_err, times
+    # phase 14 refits the sweep over the mesh: the trajectory stays on the card
+    sweep = {
+        "traj": traj, "cmap": cmap, "groups": groups, "spec": spec,
+        "coefs": np.stack(tmap.force_map.tags["coef_list"]),
+    }
+    return launches, max_err, times, sweep
 
 
 def linear_kind(name):
@@ -2031,6 +2102,62 @@ def cv_cells(torch, np, grams, rows, b_all, denoms):
     return qf, np.concatenate(resids), peaks
 
 
+def cv_cell_gate(torch, np, table, grams, rows, b_all, folds, escalated):
+    """Phase 5's gate of a config-#4 CV table on the fold Grams, constraint
+    rows and targets it was computed from: every (l2, fold) cell the CV did
+    not escalate within CV_REL_LIMIT + cond * 2**-24 of a float64 witness of
+    the problem its solver poses, each l2's score the mean of its cells
+    where none escalated, and ``escalated`` cells counted as the residuals
+    say. Escalated cells (the float64 host oracle's, on Grams of condition
+    up to ~1e7 at l2 = 1) are printed beside the witness, not gated.
+    Returns the cells, the witnesses, the escalation mask, the limits, the
+    denominators and the failures."""
+    denoms = np.array([3 * len(f) * grams.shape[1] for f in folds], dtype=np.float64)
+    cells, resid, peaks = cv_cells(torch, np, grams, rows, b_all, denoms)
+    for l2s, peak, predicted in peaks:
+        log(f"  solve block l2 {l2s}: peak device memory {peak / 2**30:.3f} GiB above "
+            f"the Grams (predicted by _l2_blocks' accounting {predicted / 2**30:.3f} GiB)")
+    t0 = time.perf_counter()
+    exact = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=False)[0] / denoms
+    posed, cond = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=True)
+    posed = posed / denoms
+    limit = CV_REL_LIMIT + cond * F32_EPS
+    log(f"  float64 witness on the card, all {cells.size} cells with and without "
+        f"the solver's ridge: {time.perf_counter() - t0:.2f} s")
+    esc = ~(resid <= 1e-4)  # NaN-aware, as fused_gb_cv decides
+    rel = np.abs(cells - posed) / np.abs(posed)
+    bias = np.abs(posed - exact) / np.abs(exact)
+    failed = []
+    for i, l2 in enumerate(CV_L2S):
+        got = table[float(l2)][0]
+        # escalated cells hold the host oracle's scores: their sum, read back
+        # from the CV's mean, beside the witness's
+        host_sum = CV_FOLDS * got - float(cells[i][~esc[i]].sum())
+        if esc[i].any():
+            log(f"  l2 {l2:g}: escalated cells sum to {host_sum:.10g} in the CV, "
+                f"{float(exact[i][esc[i]].sum()):.10g} in the card's float64 witness "
+                f"(condition up to {cond[i].max():.3g})")
+        log(f"  l2 {l2:g}: CV score {got:.8g}; float64 witness {posed[i].mean():.8g} "
+            f"with the solver's ridge, {exact[i].mean():.8g} without (ridge bias "
+            f"{bias[i].max():.2e}); condition up to {cond[i].max():.3g}, limit "
+            f"{limit[i].max():.2e}; cells rel err {', '.join(f'{x:.2e}' for x in rel[i])}; "
+            f"residuals {', '.join(f'{x:.1e}' for x in resid[i])}; escalated folds "
+            f"{np.nonzero(esc[i])[0].tolist()}")
+        if not esc[i].any() and not abs(got - cells[i].mean()) <= 1e-6 * abs(got):
+            failed.append(f"the CV's score at l2 {l2:g} is not its cells' mean")
+    worst = float(np.max(np.where(esc, 0.0, rel / limit)))
+    li = CV_L2S.index(1e3)
+    log(f"  config #4: {int(esc.sum())} escalated cells; the others against the "
+        f"float64 witness of the posed problem: largest rel err / its limit "
+        f"{worst:.3e} (must be <= 1); largest rel err at l2 >= 1e3 "
+        f"{float(np.max(np.where(esc, 0.0, rel)[li:])):.3e}")
+    if int(esc.sum()) != escalated:
+        failed.append(f"the CV escalated {escalated} cells, its residuals say {int(esc.sum())}")
+    if not worst <= 1.0:
+        failed.append(f"a CV cell lies {worst:.3e} of its limit from its float64 score")
+    return dict(cells=cells, exact=exact, esc=esc, limit=limit, denoms=denoms, failed=failed)
+
+
 def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
     """Config #4: ``fused_gb_cv`` at the shape of bench.py's run_cv on the
     card. Gates: five launches of kernel 1 per CV; every cell that did not
@@ -2090,17 +2217,11 @@ def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
         )
 
     grams, rows, b_all, folds, samples = problem()
-    denoms = np.array([3 * len(f) * cmap.n_cg_sites for f in folds], dtype=np.float64)
-    cells, resid, peaks = cv_cells(torch, np, grams, rows, b_all, denoms)
-    for l2s, peak, predicted in peaks:
-        log(f"  solve block l2 {l2s}: peak device memory {peak / 2**30:.3f} GiB above "
-            f"the Grams (predicted by _l2_blocks' accounting {predicted / 2**30:.3f} GiB)")
-    t0 = time.perf_counter()
-    exact = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=False)[0] / denoms
-    posed, cond = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=True)
-    posed = posed / denoms
-    limit = CV_REL_LIMIT + cond * F32_EPS
-    witness_s = time.perf_counter() - t0
+    gate = cv_cell_gate(torch, np, table, grams, rows, b_all, folds, escalated)
+    cells, exact, esc, limit, failed = (
+        gate[k] for k in ("cells", "exact", "esc", "limit", "failed")
+    )
+    denoms = gate["denoms"]
     li = CV_L2S.index(1e3)
     t0 = time.perf_counter()
     one = np.zeros(cells.shape, dtype=bool)
@@ -2110,42 +2231,10 @@ def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
         CV_L2S, np.zeros(cells.shape), one,
     )[li, 0] / denoms[0]
     host_rel = abs(host_cell - exact[li, 0]) / abs(exact[li, 0])
-    log(f"  float64 witness on the card, all {cells.size} cells with and without "
-        f"the solver's ridge: {witness_s:.2f} s; the program's host oracle "
-        f"(_host_featurized_scores) on (fold 0, l2 1e3): {time.perf_counter() - t0:.2f} "
-        f"s, {host_rel:.2e} off the witness")
-    esc = ~(resid <= 1e-4)  # NaN-aware, as fused_gb_cv decides
-    rel = np.abs(cells - posed) / np.abs(posed)
-    bias = np.abs(posed - exact) / np.abs(exact)
-    failed = []
+    log(f"  the program's host oracle (_host_featurized_scores) on (fold 0, l2 1e3): "
+        f"{time.perf_counter() - t0:.2f} s, {host_rel:.2e} off the card's float64 witness")
     if not host_rel <= 1e-9:
         failed.append("the card's float64 witness disagrees with the host oracle")
-    for i, l2 in enumerate(CV_L2S):
-        got = table[float(l2)][0]
-        # escalated cells hold the host oracle's scores: their sum, read back
-        # from the CV's mean, beside the witness's
-        host_sum = CV_FOLDS * got - float(cells[i][~esc[i]].sum())
-        if esc[i].any():
-            log(f"  l2 {l2:g}: escalated cells sum to {host_sum:.10g} in the CV, "
-                f"{float(exact[i][esc[i]].sum()):.10g} in the card's float64 witness "
-                f"(condition up to {cond[i].max():.3g})")
-        log(f"  l2 {l2:g}: CV score {got:.8g}; float64 witness {posed[i].mean():.8g} "
-            f"with the solver's ridge, {exact[i].mean():.8g} without (ridge bias "
-            f"{bias[i].max():.2e}); condition up to {cond[i].max():.3g}, limit "
-            f"{limit[i].max():.2e}; cells rel err {', '.join(f'{x:.2e}' for x in rel[i])}; "
-            f"residuals {', '.join(f'{x:.1e}' for x in resid[i])}; escalated folds "
-            f"{np.nonzero(esc[i])[0].tolist()}")
-        if not esc[i].any() and not abs(got - cells[i].mean()) <= 1e-6 * abs(got):
-            failed.append(f"the CV's score at l2 {l2:g} is not its cells' mean")
-    worst = float(np.max(np.where(esc, 0.0, rel / limit)))
-    log(f"  config #4: {int(esc.sum())} escalated cells; the others against the "
-        f"float64 witness of the posed problem: largest rel err / its limit "
-        f"{worst:.3e} (must be <= 1); largest rel err at l2 >= 1e3 "
-        f"{float(np.max(np.where(esc, 0.0, rel)[li:])):.3e}")
-    if int(esc.sum()) != escalated:
-        failed.append(f"the CV escalated {escalated} cells, its residuals say {int(esc.sum())}")
-    if not worst <= 1.0:
-        failed.append(f"a CV cell lies {worst:.3e} of its limit from its float64 score")
 
     # gate (c): refit (fold 0, l2 = 1e3) on the train frames with that
     # fold's constraint frames, and score its mapped holdout forces
@@ -2192,7 +2281,35 @@ def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
         fail("config #4: " + "; ".join(failed))
     del grams, rows, b_all
     fit_breakdown(torch, cv, cv_med)
-    return launches, first_s, cv_min, cv_med
+    # phase 14 holds the one-rank mesh CV to this table, bit for bit
+    return launches, first_s, cv_min, cv_med, table
+
+
+def linear_cv_float64(torch, np, forces, cmap, groups):
+    """Config #1's linear CV scores (one per CV_L2S value) solved in float64
+    on the host from the folds' float32 Grams (``_host_linear_scores``)."""
+    from aggforce_torch.qp.cv import _host_linear_scores
+    from aggforce_torch.qp.qplinear import _linear_gram, _reduced, constraint_labels
+    from aggforce_torch.utils.device import full_fp32
+
+    forces = torch.as_tensor(forces, device="cuda")
+    folds = cv_folds(np)
+    labels_np, r = constraint_labels(cmap.n_fg_sites, set(groups))
+    labels = torch.as_tensor(labels_np, dtype=torch.int64, device="cuda")
+    with full_fp32():
+        grams = torch.stack([
+            _linear_gram(forces[torch.as_tensor(idx, device="cuda")].float(), labels, r)
+            for idx in folds
+        ])
+    a_mat = _reduced(torch.as_tensor(cmap.standard_matrix, dtype=torch.float32,
+                                     device="cuda"), labels, r)
+    ridge = np.diag(np.bincount(labels_np, minlength=r)).astype(np.float64)
+    exact = _host_linear_scores(
+        grams.cpu().numpy().astype(np.float64), a_mat.cpu().numpy().astype(np.float64),
+        np.eye(cmap.n_cg_sites), ridge, CV_L2S, np.zeros((len(CV_L2S), CV_FOLDS)),
+        np.ones((len(CV_L2S), CV_FOLDS), dtype=bool),
+    ) / np.array([3 * len(f) * cmap.n_cg_sites for f in folds])
+    return exact.mean(axis=1)
 
 
 def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
@@ -2206,10 +2323,8 @@ def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
     from aggforce_torch.agg import NRUNS_KNAME, SCORES_KNAME
     from aggforce_torch.ops.gram import site_grams
     from aggforce_torch.qp import qp_feat_linear_map
-    from aggforce_torch.qp.cv import _host_linear_scores, fused_gb_cv_grid
+    from aggforce_torch.qp.cv import fused_gb_cv_grid
     from aggforce_torch.qp.fusedfeat import recognize_canonical_featurizer
-    from aggforce_torch.qp.qplinear import _linear_gram, _reduced, constraint_labels
-    from aggforce_torch.utils.device import full_fp32
 
     coords = torch.as_tensor(coords_np, device="cuda")
     forces = torch.as_tensor(forces_np, device="cuda")
@@ -2255,25 +2370,10 @@ def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
         rng=np.random.default_rng(CV_SEED), fast=True, coord_map=cmap,
     )
     read_counts("config #1 linear CV through project_forces_grid_cv")
-    folds = cv_folds(np)
-    labels_np, r = constraint_labels(cmap.n_fg_sites, set(groups))
-    labels = torch.as_tensor(labels_np, dtype=torch.int64, device="cuda")
-    with full_fp32():
-        grams = torch.stack([
-            _linear_gram(forces[torch.as_tensor(idx, device="cuda")].float(), labels, r)
-            for idx in folds
-        ])
-    a_mat = _reduced(torch.as_tensor(cmap.standard_matrix, dtype=torch.float32,
-                                     device="cuda"), labels, r)
-    ridge = np.diag(np.bincount(labels_np, minlength=r)).astype(np.float64)
-    exact = _host_linear_scores(
-        grams.cpu().numpy().astype(np.float64), a_mat.cpu().numpy().astype(np.float64),
-        np.eye(cmap.n_cg_sites), ridge, CV_L2S, np.zeros((len(CV_L2S), CV_FOLDS)),
-        np.ones((len(CV_L2S), CV_FOLDS), dtype=bool),
-    ) / np.array([3 * len(f) * cmap.n_cg_sites for f in folds])
+    exact = linear_cv_float64(torch, np, forces, cmap, groups)
     worst = 0.0
     for i, (label, score) in enumerate(lin[SCORES_KNAME].items()):
-        expect = float(exact[i].mean())
+        expect = float(exact[i])
         worst = max(worst, abs(score - expect) / expect)
     log(f"linear grid through project_forces_grid_cv (config #1, l2 {CV_L2S}): "
         f"largest rel err against float64 scores {worst:.3e} (limit {CV_REL_LIMIT:.0e})")
@@ -2689,9 +2789,10 @@ def phase_streamed_featurized(torch, np, cmap, groups, spec, smi, tmpdir):
     a float64 sum (a stream that skips one chunk must not be); the fit within
     J_GAP_LIMIT of its float64 optimum; kernel 1 against its plain version at
     the chunk shapes. Returns (launches, kernel-1 report at the chunk shape,
-    max abs error, seconds of the streamed fit, seconds of its Gram); the
-    launches are those the last streamed fit made, read after its counts were
-    set to 0."""
+    max abs error, seconds of the streamed fit, seconds of its Gram, the fit's
+    float64 problem (regularized Gram, constraint rows) on the host for
+    phase 14); the launches are those the last streamed fit made, read after
+    its counts were set to 0."""
     from aggforce_torch import Trajectory
     from aggforce_torch.io import TrajectoryStream, fused_gb_linear_map_streamed
     from aggforce_torch.io.stream import streamed_site_grams
@@ -2857,7 +2958,7 @@ def phase_streamed_featurized(torch, np, cmap, groups, spec, smi, tmpdir):
     log(f"phase 11 (streamed featurized fit) {time.perf_counter() - t_phase:.1f} s; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del coords, forces, traj, ops
-    return launches, report, max(errs_k), best, gram_s
+    return launches, report, max(errs_k), best, gram_s, (gram_h, rows_h)
 
 
 def phase_streamed_linear(torch, np, smi, tmpdir):
@@ -3099,9 +3200,679 @@ def phase_staging_persistence_warmup(torch, np, coords, forces, cmap, groups, sp
     return warm
 
 
+# --- phase 14, the mesh -------------------------------------------------------
+
+
+def timed_all_reduces(torch, mesh):
+    """Time this mesh's all-reduces: ``mesh.all_reduce`` is wrapped so that
+    each call waits for the device and a barrier of the ranks before it (the
+    time is the collective's, not the wait for a slower rank) and for the
+    device after it. Returns the list each call appends (bytes, seconds) to."""
+    import torch.distributed as dist
+
+    record, inner = [], mesh.all_reduce
+
+    def all_reduce(x, *args, **kw):
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        t0 = time.perf_counter()
+        out = inner(x, *args, **kw)
+        torch.cuda.synchronize()
+        record.append((x.numel() * x.element_size(), time.perf_counter() - t0))
+        return out
+
+    mesh.all_reduce = all_reduce
+    return record
+
+
+def mesh_run(torch, label, fn, mesh, traffic):
+    """One mesh fit, the Gram kernels' counts set to 0 just before it and
+    read just after: (result, launches, seconds, peak device bytes, this
+    fit's all-reduces as (bytes, seconds), from the ``traffic`` list that
+    ``timed_all_reduces`` fills)."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_tiled
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    n_traffic = len(traffic)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"site_grams": site_grams.launches, "site_grams_tiled": site_grams_tiled.launches}
+    peak = torch.cuda.max_memory_allocated()
+    reduces = list(traffic[n_traffic:])
+    timed = ", ".join(f"{b / 1e6:.3f} MB in {t * 1e3:.3f} ms" for b, t in reduces)
+    log(f"  [{mesh.rank}/{mesh.size}] {label}: {seconds:.3f} s; launches {launches}; peak "
+        f"device memory {peak / 2**30:.2f} GiB; all_reduces: {timed or 'none'}")
+    return out, launches, seconds, peak, reduces
+
+
+def mesh_expect_launches(label, got, want, failed):
+    if got != want:
+        failed.append(f"{label} launched {got}, not {want}")
+
+
+def mesh_one_rank(torch, np, coords_np, forces_np, cmap, groups, spec, cv_table, sweep, tmpdir):
+    """Phase 14 (a): every mesh entry point on a world-size-1 NCCL group in
+    this process, each held bit for bit to the single-device result of the
+    earlier phases (the same call without ``mesh``, or that phase's
+    output); the group is destroyed at the end. Returns kernel-1 and
+    kernel-2 launches by path."""
+    import os
+
+    import torch.distributed as dist
+
+    import aggforce_torch
+    from aggforce_torch import Curry, Multifeaturize, Trajectory, gb_feat, id_feat
+    from aggforce_torch import parallel as par
+    from aggforce_torch.io import (
+        TrajectoryStream,
+        fused_gb_linear_map_streamed,
+        qp_linear_map_streamed,
+    )
+    from aggforce_torch.qp import (
+        fused_gb_linear_map_batch,
+        fused_gb_linear_map_blocked,
+        qp_feat_linear_map,
+        stagedjoptgauss_map,
+    )
+    from aggforce_torch.qp.cv import fused_gb_cv
+    from aggforce_torch.utils.warmup import warm_featurized_fit
+
+    t_phase = time.perf_counter()
+    par.initialize_distributed()  # no cluster: a real world-size-1 group
+    mesh = par.make_mesh()
+    traffic = timed_all_reduces(torch, mesh)
+    log(f"phase 14 (a): backend {dist.get_backend()}, {mesh}")
+    coords = torch.as_tensor(coords_np, device="cuda")
+    forces = torch.as_tensor(forces_np, device="cuda")
+    traj = Trajectory(coords=coords, forces=forces)
+    constraints = set(groups)
+    kw = dict(kbt=KBT, spec=spec, constraints=constraints, l2_regularization=L2)
+    failed, by_path = [], {}
+
+    def same(label, single, meshed):
+        equal = all(np.array_equal(a, b) for a, b in zip(single, meshed))
+        worst = max(float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+                    for a, b in zip(single, meshed))
+        log(f"  {label}: mesh result equals the single-device one bit for bit: "
+            f"{equal} (largest difference {worst:.3e})")
+        if not equal:
+            failed.append(f"{label} differs from its single-device result")
+
+    def coefs(tmap):
+        return [np.stack(tmap.force_map.tags["coef_list"])]
+
+    try:
+        label = "config #1 (project_forces, every default)"
+        single = aggforce_torch.project_forces(coords, forces, cmap)
+        out, got, *_ = mesh_run(torch, label, lambda: aggforce_torch.project_forces(
+            coords, forces, cmap, mesh=mesh), mesh, traffic)
+        same(label, [single["tmap"].force_map.standard_matrix],
+             [out["tmap"].force_map.standard_matrix])
+        mesh_expect_launches(label, got, {"site_grams": 0, "site_grams_tiled": 0}, failed)
+
+        featurizer = Multifeaturize(
+            [id_feat, Curry(gb_feat, outer=OUTER, n_basis=N_BASIS, width=WIDTH)]
+        )
+
+        def config3(**extra):
+            return aggforce_torch.project_forces(
+                coords_np, forces_np, cmap, constrained_inds=constraints,
+                method=qp_feat_linear_map, featurizer=featurizer, kbt=KBT,
+                l2_regularization=L2, constraint_rng=np.random.default_rng(7), **extra,
+            )
+
+        label = "config #3 fit (project_forces)"
+        single = config3()
+        out, got, *_ = mesh_run(torch, label, lambda: config3(mesh=mesh), mesh, traffic)
+        same(label, coefs(single["tmap"]), coefs(out["tmap"]))
+        mesh_expect_launches(label, got, {"site_grams": 1, "site_grams_tiled": 0}, failed)
+        by_path[label] = got
+
+        label = "batch fits (fused_gb_linear_map_batch)"
+        seeds = list(range(BATCH_WINDOWS * BATCH_WINDOW))
+        single = fused_gb_linear_map_batch(traj, cmap, seeds=seeds, flush_every=BATCH_WINDOW, **kw)
+        out, got, *_ = mesh_run(torch, label, lambda: fused_gb_linear_map_batch(
+            traj, cmap, seeds=seeds, flush_every=BATCH_WINDOW, mesh=mesh, **kw), mesh, traffic)
+        same(label, [m.force_map._coefs.cpu().numpy() for m in single],
+             [m.force_map._coefs.cpu().numpy() for m in out])
+        mesh_expect_launches(
+            label, got, {"site_grams": BATCH_WINDOWS, "site_grams_tiled": 0}, failed
+        )
+        by_path[label] = got
+        del single, out
+
+        label = "config #4 CV (fused_gb_cv)"
+        out, got, *_ = mesh_run(torch, label, lambda: fused_gb_cv(
+            coords, forces, cmap, constraints, kbt=KBT, spec=spec, l2_values=CV_L2S,
+            n_folds=CV_FOLDS, n_constraint_frames=20, rng=np.random.default_rng(CV_SEED),
+            mesh=mesh), mesh, traffic)
+        same(label, [np.array(list(cv_table.values()), dtype=np.float64)],
+             [np.array(list(out.values()), dtype=np.float64)])
+        mesh_expect_launches(label, got, {"site_grams": CV_FOLDS, "site_grams_tiled": 0}, failed)
+        by_path[label] = got
+
+        label = "config #2 staged map (stagedjoptgauss_map)"
+
+        def staged(**extra):
+            tmap = stagedjoptgauss_map(
+                traj, cmap, var=GAUSS_VAR, kbt=KBT, constraints=constraints,
+                seed=GAUSS_SEEDS[0], **extra,
+            )
+            return [tmap[1].force_map.standard_matrix, tmap[0].tmap.force_map.standard_matrix]
+
+        single = staged()
+        out, got, *_ = mesh_run(torch, label, lambda: staged(mesh=mesh), mesh, traffic)
+        same(label, single, out)
+        mesh_expect_launches(label, got, {"site_grams": 0, "site_grams_tiled": 0}, failed)
+
+        label = "streamed featurized fit (fused_gb_linear_map_streamed)"
+        stream = TrajectoryStream.from_npy(
+            os.path.join(tmpdir, "config3_coords.npy"), os.path.join(tmpdir, "config3_forces.npy"),
+            chunk_size=STREAM_CHUNK,
+        )
+
+        def streamed(**extra):
+            return fused_gb_linear_map_streamed(
+                stream, cmap, constraint_rng=np.random.default_rng(7), **kw, **extra
+            )
+
+        single = streamed()
+        out, got, *_ = mesh_run(torch, label, lambda: streamed(mesh=mesh), mesh, traffic)
+        same(label, coefs(single), coefs(out))
+        n_chunks = -(-STREAM_FRAMES // STREAM_CHUNK)
+        mesh_expect_launches(label, got, {"site_grams": n_chunks, "site_grams_tiled": 0}, failed)
+        by_path[label] = got
+
+        label = "streamed linear fit (qp_linear_map_streamed)"
+        _, _, lcmap, lgroups = linear_sweep_fixture(torch, 8, seed=2)
+        lstream = TrajectoryStream.from_npy(
+            os.path.join(tmpdir, "linear_coords.npy"), os.path.join(tmpdir, "linear_forces.npy"),
+            chunk_size=STREAM_CHUNK,
+        )
+        single = qp_linear_map_streamed(lstream, lcmap, constraints=set(lgroups))
+        out, got, *_ = mesh_run(torch, label, lambda: qp_linear_map_streamed(
+            lstream, lcmap, constraints=set(lgroups), mesh=mesh), mesh, traffic)
+        same(label, [single.force_map.standard_matrix], [out.force_map.standard_matrix])
+        mesh_expect_launches(label, got, {"site_grams": 0, "site_grams_tiled": 0}, failed)
+
+        label = "warm_featurized_fit"
+
+        def warm():
+            handle = warm_featurized_fit(
+                N_FRAMES, cmap, spec, constraints, kbt=KBT, l2_regularization=L2, mesh=mesh
+            )
+            handle.wait()
+            return handle
+
+        handle, got, *_ = mesh_run(torch, label, warm, mesh, traffic)
+        log(f"  {label}: phases {handle.phases}, error {handle.error!r}")
+        if handle.error is not None:
+            failed.append(f"the mesh warm-up failed: {handle.error!r}")
+        mesh_expect_launches(label, got, {"site_grams": 1, "site_grams_tiled": 0}, failed)
+        by_path[label] = got
+
+        label = "sweep fit (fused_gb_linear_map_blocked)"
+        out, got, *_ = mesh_run(torch, label, lambda: fused_gb_linear_map_blocked(
+            sweep["traj"], sweep["cmap"], kbt=SWEEP_KBT, spec=sweep["spec"],
+            constraints=set(sweep["groups"]), l2_regularization=L2, n_constraint_frames=20,
+            constraint_rng=np.random.default_rng(3), chunk_size=256,
+            site_block=SWEEP_SITE_BLOCK, mesh=mesh), mesh, traffic)
+        same(label, [sweep["coefs"]], coefs(out))
+        n_blocks = -(-sweep["cmap"].n_cg_sites // SWEEP_SITE_BLOCK)
+        mesh_expect_launches(label, got, {"site_grams": 0, "site_grams_tiled": n_blocks}, failed)
+        by_path[label] = got
+        del out
+    finally:
+        dist.destroy_process_group()
+    if failed:
+        fail("phase 14 (a): " + "; ".join(failed))
+    log(f"phase 14 (a) (one rank, NCCL) {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def shard_kernel_check(torch, args, label, checks):
+    """Kernel 1 against its plain version on one of this rank's shards
+    (``args``: a ``_site_gram`` argument list without its Gram function),
+    the tolerance of ``compare_kernel``: atol 3e-4 * (max|plain| + 1).
+    Appends the result to ``checks`` and returns the kernel's Gram."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_plain
+    from aggforce_torch.qp.fusedfeat import _site_gram
+
+    got = _site_gram(*args, site_grams)
+    torch.cuda.synchronize()
+    ref = _site_gram(*args, site_grams_plain)
+    err = float((got - ref).abs().max())
+    atol = 3e-4 * (float(ref.abs().max()) + 1.0)
+    finite = bool(torch.isfinite(got).all())
+    log(f"  site_grams vs plain [{label}] frames={args[0].shape[0]} "
+        f"max_abs_err={err:.6g} atol={atol:.6g} finite={finite}")
+    checks.append({"shape": label, "frames": int(args[0].shape[0]), "max_abs_err": err,
+                   "atol": atol, "finite": finite})
+    del ref
+    return got
+
+
+def mesh_child(rank, world, store):
+    """Phase 14 (b)'s rank ``rank`` of ``world``: joins the gloo group on a
+    FileStore at ``store`` (all ranks share the one card), runs the mesh
+    fits, holds kernel 1 against its plain version on each of its shards,
+    and writes its results beside ``store`` (``mesh_rank<rank>.npz`` and
+    ``.json``); rank 0 adds the reduced and the unreduced (its own share)
+    fold and streamed Grams."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import aggforce_torch
+    from aggforce_torch import Curry, Multifeaturize, Trajectory, gb_feat, id_feat
+    from aggforce_torch import parallel as par
+    from aggforce_torch.io import TrajectoryStream, fused_gb_linear_map_streamed
+    from aggforce_torch.io.stream import streamed_site_grams
+    from aggforce_torch.parallel.mesh import shard_frames
+    from aggforce_torch.qp import (
+        fused_gb_linear_map_batch,
+        fused_gb_linear_map_blocked,
+        make_bond_constraint_matrix,
+        qp_feat_linear_map,
+    )
+    from aggforce_torch.qp.cv import _featurized_cv_problem, fused_gb_cv, linear_map_cv
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec, _fit_constants, _prepare_fused_setup
+    from aggforce_torch.qp.qplinear import fit_routes
+
+    if not torch.cuda.is_available():
+        fail("the mesh child has no CUDA card")
+    torch.cuda.set_device(0)
+    tmpdir = os.path.dirname(store)
+    par.initialize_distributed("file://" + store, world, rank, backend="gloo")
+    mesh = par.make_mesh()
+    traffic = timed_all_reduces(torch, mesh)
+    coords, forces, cmap, groups = fixture()
+    constraints = set(groups)
+    spec = GBFeatSpec(outer=OUTER, n_basis=N_BASIS, width=WIDTH)
+    res, meta = {}, {"launches": {}, "seconds": {}, "peak_bytes": {}, "all_reduce": {}}
+    checks = meta["kernel_vs_plain"] = []
+
+    def run(label, fn):
+        out, launches, seconds, peak, reduces = mesh_run(torch, label, fn, mesh, traffic)
+        meta["launches"][label] = launches
+        meta["seconds"][label] = seconds
+        meta["peak_bytes"][label] = peak
+        meta["all_reduce"][label] = reduces
+        return out
+
+    def coefs(tmap):
+        return np.stack(tmap.force_map.tags["coef_list"])
+
+    featurizer = Multifeaturize(
+        [id_feat, Curry(gb_feat, outer=OUTER, n_basis=N_BASIS, width=WIDTH)]
+    )
+    out = run("config #3 fit (project_forces)", lambda: aggforce_torch.project_forces(
+        coords, forces, cmap, constrained_inds=constraints, method=qp_feat_linear_map,
+        featurizer=featurizer, kbt=KBT, l2_regularization=L2,
+        constraint_rng=np.random.default_rng(7), mesh=mesh))
+    res["config3_coefs"] = coefs(out["tmap"])
+    # the fit's reduced Gram, by its own steps: this rank's share of the
+    # frames through the kernel (held against the plain version on the same
+    # shard; the batch fits take the same shard), then the all-reduce
+    setup = _prepare_fused_setup(
+        Trajectory(coords=coords, forces=forces), cmap, spec, constraints, None, mesh
+    )
+    local = shard_kernel_check(
+        torch, (*setup["trajectory"], *setup["consts"], KBT, spec), "config #3 shard", checks
+    )
+    res["config3_gram_local"] = local.cpu().numpy()
+    res["config3_gram"] = mesh.all_reduce(local.clone()).cpu().numpy()
+    del setup, local
+
+    maps = run("batch fits (fused_gb_linear_map_batch)", lambda: fused_gb_linear_map_batch(
+        Trajectory(coords=coords, forces=forces), cmap, kbt=KBT, spec=spec,
+        seeds=range(MESH_BATCH_WINDOWS * BATCH_WINDOW), constraints=constraints,
+        l2_regularization=L2, flush_every=BATCH_WINDOW, mesh=mesh))
+    res["batch_coefs"] = torch.stack([m.force_map._coefs for m in maps]).cpu().numpy()
+    del maps
+
+    out = run("config #1 (project_forces, every default)", lambda: aggforce_torch.project_forces(
+        coords, forces, cmap, mesh=mesh))
+    res["config1_map"] = out["tmap"].force_map.standard_matrix
+    res["sharded_linear_map"] = run("sharded_linear_fit", lambda: par.sharded_linear_fit(
+        forces, make_bond_constraint_matrix(cmap.n_fg_sites, out["constraints"]),
+        cmap.standard_matrix, mesh=mesh))
+    table = run("config #1 linear CV (linear_map_cv)", lambda: linear_map_cv(
+        coords, forces, cmap, out["constraints"], CV_L2S, n_folds=CV_FOLDS,
+        rng=np.random.default_rng(CV_SEED), mesh=mesh))
+    res["linear_cv"] = np.array([table[float(l2)][0] for l2 in CV_L2S])
+    table = run("config #4 CV (fused_gb_cv)", lambda: fused_gb_cv(
+        coords, forces, cmap, constraints, kbt=KBT, spec=spec, l2_values=CV_L2S,
+        n_folds=CV_FOLDS, n_constraint_frames=20, rng=np.random.default_rng(CV_SEED),
+        mesh=mesh))
+    res["feat_cv"] = np.array([table[float(l2)][0] for l2 in CV_L2S])
+    escalated = fit_routes.get("cv_escalated_cells", 0)
+    # the CV's reduced problem, by its own steps, through phase 5's cell
+    # gate (in this process: the cells must be the ones the CV solved)
+    grams, rows, b_all, folds, _ = _featurized_cv_problem(
+        coords, forces, cmap, constraints, KBT, spec, CV_FOLDS, 20,
+        np.random.default_rng(CV_SEED), mesh=mesh,
+    )
+    if rank == 0:
+        log(f"  [{rank}/{world}] the mesh CV against float64 witnesses of its reduced "
+            f"fold Grams (phase 5's gate):")
+        meta["cv_gate_failed"] = cv_cell_gate(
+            torch, np, table, grams, rows, b_all, folds, escalated
+        )["failed"]
+    del rows, b_all
+    # each fold's share on this rank, as the CV pads and splits it, through
+    # the kernel and its plain version
+    consts = _fit_constants(cmap, spec, constraints, mesh.device)["consts"]
+    pad_len = -(-max(len(idx) for idx in folds) // world) * world
+    local = torch.stack([
+        shard_kernel_check(
+            torch, (*shard_frames(mesh, [coords, forces], idx, length=pad_len),
+                    *consts, KBT, spec), f"config #4 CV fold {f} shard", checks,
+        )
+        for f, idx in enumerate(folds)
+    ])
+    if rank == 0:  # the parent gates them against the single-device fold Grams
+        res["cv_gram"] = grams.cpu().numpy()
+        res["cv_gram_local"] = local.cpu().numpy()
+    del grams, local
+
+    stream = TrajectoryStream.from_npy(
+        os.path.join(tmpdir, "config3_coords.npy"), os.path.join(tmpdir, "config3_forces.npy"),
+        chunk_size=STREAM_CHUNK,
+    )
+    frame_slice = par.process_frame_slice(stream.n_frames)
+    fit = run("streamed featurized fit (fused_gb_linear_map_streamed)",
+              lambda: fused_gb_linear_map_streamed(
+                  stream, cmap, kbt=KBT, spec=spec, constraints=constraints,
+                  l2_regularization=L2, constraint_rng=np.random.default_rng(7), mesh=mesh,
+                  frame_slice=frame_slice))
+    res["stream_coefs"] = coefs(fit)
+    # the streamed Gram by its own steps: this rank's frame_slice, then the
+    # all-reduce; and kernel 1 on the slice's first and last chunks
+    local = streamed_site_grams(stream, consts, KBT, spec, frame_slice)
+    reduced = mesh.all_reduce(local.clone())
+    if rank == 0:
+        res["stream_gram"] = reduced.cpu().numpy()
+        res["stream_gram_local"] = local.cpu().numpy()
+    del local, reduced
+    chunks = list(stream.chunks(frame_slice))
+    for name, (cc, fc, n_valid) in (("first", chunks[0]), ("last", chunks[-1])):
+        shard_kernel_check(
+            torch, (torch.as_tensor(np.asarray(cc), device="cuda"),
+                    torch.as_tensor(np.asarray(fc), device="cuda"),
+                    torch.ones(n_valid, dtype=torch.float32, device="cuda"),
+                    *consts, KBT, spec), f"streamed {name} chunk of the rank's slice",
+            checks,
+        )
+    del chunks
+
+    t0 = time.perf_counter()
+    scoords, sforces, scmap, sgroups = sweep_fixture()
+    straj = Trajectory(coords=torch.as_tensor(scoords, device="cuda"),
+                       forces=torch.as_tensor(sforces, device="cuda"))
+    del scoords, sforces
+    log(f"  [{rank}/{world}] sweep fixture {time.perf_counter() - t0:.3f} s")
+    fit = run("sweep fit (fused_gb_linear_map_blocked)", lambda: fused_gb_linear_map_blocked(
+        straj, scmap, kbt=SWEEP_KBT, spec=GBFeatSpec(outer=8.0, inner=0.0, n_basis=7, width=1.0),
+        constraints=set(sgroups), l2_regularization=L2, n_constraint_frames=20,
+        constraint_rng=np.random.default_rng(3), chunk_size=256,
+        site_block=SWEEP_SITE_BLOCK, mesh=mesh))
+    res["sweep_coefs"] = coefs(fit)
+    dist.destroy_process_group()
+    np.savez(os.path.join(tmpdir, f"mesh_rank{rank}.npz"), **res)
+    with open(os.path.join(tmpdir, f"mesh_rank{rank}.json"), "w") as fh:
+        json.dump(meta, fh)
+    log(f"  [{rank}/{world}] done, group destroyed: {not dist.is_initialized()}")
+    return 0
+
+
+def mesh_two_ranks(torch, np, coords_np, forces_np, cmap, groups, spec, problem64, cv_table,
+                   sweep, stream64, tmpdir, smi):
+    """Phase 14 (b): two ranks sharing the one card over gloo
+    (``--mesh-child`` subprocesses, a FileStore in ``tmpdir``). Gates: the
+    ranks' results equal bit for bit; kernel 1 against its plain version on
+    every shard a rank launched it on; rank 0's reduced Grams (config #3,
+    the config-#4 CV's folds, the streamed fit's) within MESH_GRAM_LIMIT of
+    the largest entry of their single-device Grams (rank 0's own share, a
+    Gram missing rank 1's frames, must not be); the config-#3 fit, two
+    batch fits, the streamed fit and two sweep blocks (one per rank) within
+    J_GAP_LIMIT of their float64 optimum; config #1's mapped forces within
+    CONFIG1_REL_RMS_LIMIT of the float64 host fit; the CV's cells through
+    phase 5's gate (``cv_cell_gate``, run by rank 0 on its reduced fold
+    Grams). Returns each rank's launches by path and kernel 1's largest
+    error against its plain version on the ranks' shards, by shard."""
+    import os
+
+    from aggforce_torch import Trajectory, qp_linear_map
+    from aggforce_torch.io import TrajectoryStream
+    from aggforce_torch.io.stream import streamed_site_grams
+    from aggforce_torch.ops.gram import site_grams, site_grams_plain
+    from aggforce_torch.qp.cv import _featurized_cv_problem
+    from aggforce_torch.qp.fusedfeat import _fit_constants, _prepare_fused_setup, _site_gram
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the children share the card: give back the cached blocks
+    store = os.path.join(tmpdir, "mesh_store")
+    # a share of the host's cores each: the children's float64 host solves
+    # (the CV's escalated cells) would otherwise wait on each other's threads
+    threads = str(max(1, (os.cpu_count() or MESH_WORLD) // MESH_WORLD))
+    env = dict(os.environ, OMP_NUM_THREADS=threads, OPENBLAS_NUM_THREADS=threads)
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-child", str(rank),
+             str(MESH_WORLD), store],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        )
+        for rank in range(MESH_WORLD)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_CHILD_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail(f"phase 14 (b): a mesh child outlived {MESH_CHILD_TIMEOUT_S} s: " + " | ".join(
+            (p.communicate()[0] or "")[-2000:] for p in procs))
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines():
+            print(f"    rank {rank}: {line}", flush=True)
+        if p.returncode != 0:
+            fail(f"phase 14 (b): the rank {rank} child exited {p.returncode}")
+    res = [dict(np.load(os.path.join(tmpdir, f"mesh_rank{r}.npz"))) for r in range(MESH_WORLD)]
+    meta = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(tmpdir, f"mesh_rank{r}.json")) as fh:
+            meta.append(json.load(fh))
+    log(f"phase 14 (b): {MESH_WORLD} ranks sharing one card over gloo; children "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi}). Two ranks on one card "
+        f"measure correctness and the collectives' cost, not scaling; NCCL across "
+        f"cards is not measured")
+    for label in meta[0]["seconds"]:
+        per_rank = "; ".join(
+            f"rank {r}: {m['seconds'][label]:.3f} s, peak {m['peak_bytes'][label] / 2**30:.2f} GiB, "
+            f"all_reduce " + (", ".join(f"{b / 1e6:.3f} MB in {t * 1e3:.3f} ms"
+                                        for b, t in m["all_reduce"][label]) or "none")
+            for r, m in enumerate(meta)
+        )
+        log(f"  {label}: {per_rank}")
+
+    failed = []
+    # every result both ranks wrote but each rank's own Gram share, which
+    # differs by design
+    shared = [k for k in res[0] if k in res[1] and not k.endswith("_local")]
+    for key in shared:
+        if not np.array_equal(res[0][key], res[1][key]):
+            failed.append(f"the ranks' {key} differ")
+    log(f"  ranks equal bit for bit: {shared}{' except ' + ', '.join(failed) if failed else ''}")
+    n_stream = -(-(-(-STREAM_FRAMES // MESH_WORLD)) // STREAM_CHUNK)
+    n_sweep_steps = -(-sweep["cmap"].n_cg_sites // (SWEEP_SITE_BLOCK * MESH_WORLD))
+    want = {
+        "config #3 fit (project_forces)": (1, 0),
+        "batch fits (fused_gb_linear_map_batch)": (MESH_BATCH_WINDOWS, 0),
+        "config #1 (project_forces, every default)": (0, 0),
+        "sharded_linear_fit": (0, 0),
+        "config #1 linear CV (linear_map_cv)": (0, 0),
+        "config #4 CV (fused_gb_cv)": (CV_FOLDS, 0),
+        "streamed featurized fit (fused_gb_linear_map_streamed)": (n_stream, 0),
+        "sweep fit (fused_gb_linear_map_blocked)": (0, n_sweep_steps),
+    }
+    for r, m in enumerate(meta):
+        for label, (k1, k2) in want.items():
+            got = m["launches"][label]
+            if got != {"site_grams": k1, "site_grams_tiled": k2}:
+                failed.append(f"rank {r}'s {label} launched {got}, not ({k1}, {k2})")
+
+    # kernel 1 against its plain version on each rank's shards
+    shard_err = {}
+    for r, m in enumerate(meta):
+        for c in m["kernel_vs_plain"]:
+            key = f"{c['shape']} ({c['frames']} frames)"
+            shard_err[key] = max(shard_err.get(key, 0.0), c["max_abs_err"])
+            if not c["finite"] or not c["max_abs_err"] <= c["atol"]:
+                failed.append(f"rank {r}: site_grams disagrees with its plain version at "
+                              f"{key}: {c['max_abs_err']:.6g} > {c['atol']:.6g}")
+    log(f"  kernel 1 vs plain on the ranks' shards: {len(meta[0]['kernel_vs_plain'])} shards "
+        f"per rank, largest max_abs_err by shard {shard_err}")
+
+    # rank 0's reduced Grams against the single-device Grams
+    setup = _prepare_fused_setup(
+        Trajectory(coords=coords_np, forces=forces_np), cmap, spec, set(groups), "cuda"
+    )
+    singles = {
+        "config3": _site_gram(
+            *setup["trajectory"], *setup["consts"], KBT, spec, site_grams
+        ).cpu().numpy(),
+        "cv": _featurized_cv_problem(
+            coords_np, forces_np, cmap, set(groups), KBT, spec, CV_FOLDS, 20,
+            np.random.default_rng(CV_SEED), device="cuda",
+        )[0].cpu().numpy(),
+        "stream": streamed_site_grams(
+            TrajectoryStream.from_npy(
+                os.path.join(tmpdir, "config3_coords.npy"),
+                os.path.join(tmpdir, "config3_forces.npy"), chunk_size=STREAM_CHUNK,
+            ),
+            _fit_constants(cmap, spec, set(groups), torch.device("cuda"))["consts"], KBT, spec,
+        ).cpu().numpy(),
+    }
+    del setup
+    names = {"config3": "config-#3 Gram", "cv": "config-#4 CV fold Grams",
+             "stream": "streamed Gram"}
+    for key, full in singles.items():
+        scale = float(np.abs(full).max())
+        err = float(np.abs(res[0][f"{key}_gram"] - full).max()) / scale
+        fault = float(np.abs(res[0][f"{key}_gram_local"] - full).max()) / scale
+        log(f"  reduced {names[key]} vs the single-device one: max abs err / max entry "
+            f"{err:.3e}; planted fault, rank 0's share alone: {fault:.3e} (limit "
+            f"{MESH_GRAM_LIMIT:.0e})")
+        if not err <= MESH_GRAM_LIMIT:
+            failed.append(f"the reduced {names[key]} misses the single-device one")
+        if not fault > MESH_GRAM_LIMIT:
+            failed.append(f"the {names[key]} gate does not reject a Gram missing rank 1's share")
+    del singles, full
+
+    # objectives against float64 optima
+    gram64, rows64 = problem64
+    gap, _ = objective_gap(np, gram64, rows64, res[0]["config3_coefs"].astype(np.float64))
+    log(f"  config #3 mesh fit: objective gap to its float64 witness {gap:+.3e} "
+        f"(limit {J_GAP_LIMIT:.0e})")
+    if not gap <= J_GAP_LIMIT:
+        failed.append("the config-#3 mesh fit misses its float64 optimum")
+    del gram64, rows64
+    coords, forces = (torch.as_tensor(x, device="cuda") for x in (coords_np, forces_np))
+    for seed in (0, MESH_BATCH_WINDOWS * BATCH_WINDOW - 1):
+        gram, rows, _ = fit_problem(
+            torch, np, coords, forces, cmap, groups, spec, torch.float64,
+            site_grams_plain, seed=seed,
+        )
+        gap, _ = objective_gap(np, gram.cpu().numpy(), rows.cpu().numpy(),
+                               res[0]["batch_coefs"][seed].astype(np.float64))
+        log(f"  batch mesh fit, seed {seed}: objective gap {gap:+.3e} (limit {J_GAP_LIMIT:.0e})")
+        if not gap <= J_GAP_LIMIT:
+            failed.append(f"the batch mesh fit of seed {seed} misses its float64 optimum")
+    del gram, rows
+    for first in (0, SWEEP_SITE_BLOCK):  # rank 0's first block, rank 1's first block
+        try:
+            sweep_block_gate(
+                torch, np, sweep["traj"].coords, sweep["traj"].forces, sweep["cmap"],
+                sweep["groups"], sweep["spec"], res[0]["sweep_coefs"], first_site=first,
+            )
+        except RuntimeError as err:
+            failed.append(f"sweep block at site {first}: {err}")
+
+    # config #1 against the float64 host fit
+    host = qp_linear_map(
+        Trajectory(coords=coords_np, forces=forces_np.astype(np.float64)), cmap,
+        constraints=set(groups), solver_args={"backend": "host"},
+    ).force_map.standard_matrix
+    expect = np.einsum("sn,tnd->tsd", host, forces_np.astype(np.float64))
+    for key in ("config1_map", "sharded_linear_map"):
+        got = np.einsum("sn,tnd->tsd", res[0][key].astype(np.float64), forces_np)
+        err = float(np.sqrt(np.mean((got - expect) ** 2) / np.mean(expect**2)))
+        log(f"  {key}: mapped forces vs the float64 host fit, rel RMS {err:.3e} "
+            f"(limit {CONFIG1_REL_RMS_LIMIT:.0e})")
+        if not err <= CONFIG1_REL_RMS_LIMIT:
+            failed.append(f"{key} misses the float64 host fit")
+
+    # the CVs
+    exact = linear_cv_float64(torch, np, forces, cmap, groups)
+    rel = np.abs(res[0]["linear_cv"] - exact) / exact
+    log(f"  config #1 linear CV: largest rel err against float64 scores {rel.max():.3e} "
+        f"(limit {CV_REL_LIMIT:.0e})")
+    if not rel.max() <= CV_REL_LIMIT:
+        failed.append("the mesh linear CV misses the float64 scores")
+    failed += [f"the mesh CV: {f}" for f in meta[0]["cv_gate_failed"]]
+    for i, l2 in enumerate(CV_L2S):
+        ref = cv_table[float(l2)][0]
+        log(f"  config #4 CV l2 {l2:g}: mesh {res[0]['feat_cv'][i]:.8g}, single-device "
+            f"{ref:.8g} (rel {abs(res[0]['feat_cv'][i] - ref) / abs(ref):.3e})")
+    gap, _ = objective_gap(np, *stream64, res[0]["stream_coefs"].astype(np.float64))
+    log(f"  streamed mesh fit: objective gap to phase 11's float64 witness {gap:+.3e} "
+        f"(limit {J_GAP_LIMIT:.0e})")
+    if not gap <= J_GAP_LIMIT:
+        failed.append("the streamed mesh fit misses its float64 optimum")
+    if failed:
+        fail("phase 14 (b): " + "; ".join(failed))
+    log(f"phase 14 (b) (two ranks, gloo) {time.perf_counter() - t_phase:.1f} s")
+    return [m["launches"] for m in meta], shard_err
+
+
+def phase_mesh(torch, np, coords, forces, cmap, groups, spec, problem64, cv_table, sweep,
+               stream64, tmpdir, smi):
+    """Phase 14: (a) every mesh entry point on one NCCL rank, (b) two gloo
+    ranks sharing the card, and kernel 1's times at the per-rank shard
+    shape; its report carries the largest error against the plain version
+    on the ranks' shards (``max_abs_err``, and by shard)."""
+    t_phase = time.perf_counter()
+    one = mesh_one_rank(torch, np, coords, forces, cmap, groups, spec, cv_table, sweep, tmpdir)
+    two, shard_err = mesh_two_ranks(
+        torch, np, coords, forces, cmap, groups, spec, problem64, cv_table, sweep, stream64,
+        tmpdir, smi,
+    )
+    shard = N_FRAMES // MESH_WORLD
+    shard_times = {
+        **gram_kernel_times(
+            torch, packed_operands(torch, coords[:shard], forces[:shard], cmap, groups, spec),
+            spec.n_basis, f"site_grams at the mesh shard shape ({shard} frames)",
+        ),
+        "max_abs_err": max(shard_err.values()),
+        "max_abs_err_by_shard": shard_err,
+    }
+    log(f"phase 14 (mesh) {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return one, two, shard_times
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warmup-child"]:
         return warmup_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import tempfile
 
     import numpy as np
@@ -3114,7 +3885,7 @@ def main() -> int:
     coords, forces, cmap, groups = fixture()
     spec = GBFeatSpec(outer=OUTER, n_basis=N_BASIS, width=WIDTH)
     ops, fold_ops, max_err = phase_kernels(torch, np, coords, forces, cmap, groups, spec)
-    spec, launches, first_fit_s, peak_bytes = phase_main_path(
+    spec, launches, first_fit_s, peak_bytes, problem64 = phase_main_path(
         torch, np, coords, forces, cmap, groups
     )
     log(f"first fit {first_fit_s:.3f} s; peak device memory of the main path "
@@ -3124,7 +3895,7 @@ def main() -> int:
         torch, fold_ops, spec.n_basis, "site_grams at the config-#4 fold shape"
     )
     del ops, fold_ops
-    cv_launches, cv_first_s, cv_min, cv_med = phase_cv_config4(
+    cv_launches, cv_first_s, cv_min, cv_med, cv_table = phase_cv_config4(
         torch, np, coords, forces, cmap, groups, spec, smi
     )
     grid_launches = phase_cv_grids(torch, np, coords, forces, cmap, groups)
@@ -3135,18 +3906,23 @@ def main() -> int:
         f"{cv_med:.4f} s ({N_FRAMES / cv_med:.1f} frames/s); batch fits "
         f"{s_per_fit * 1e3:.3f} ms per fit against {single_med * 1e3:.2f} ms single "
         f"({smi})")
-    tiled_launches, tiled_err, tiled_times = phase_sweep(torch, np, smi)
+    tiled_launches, tiled_err, tiled_times, sweep = phase_sweep(torch, np, smi)
     phase_linear_config1(torch, np, coords, forces, cmap, groups, spec, smi)
     phase_gauss_config2(torch, np, coords, forces, cmap, groups, smi)
     phase_linear_sweep(torch, np, smi)
     generic_s = phase_generic(torch, np, coords, forces, cmap, groups, spec, smi)
     with tempfile.TemporaryDirectory(prefix="aggforce_smoke_") as tmpdir:
         streamed = phase_streamed_featurized(torch, np, cmap, groups, spec, smi, tmpdir)
-        stream_launches, stream_times, stream_err, stream_s, stream_gram_s = streamed
+        stream_launches, stream_times, stream_err, stream_s, stream_gram_s, stream64 = streamed
         linear_stream_s = phase_streamed_linear(torch, np, smi, tmpdir)
         warm = phase_staging_persistence_warmup(
             torch, np, coords, forces, cmap, groups, spec, smi, tmpdir
         )
+        mesh_one, mesh_two, shard_times = phase_mesh(
+            torch, np, coords, forces, cmap, groups, spec, problem64, cv_table, sweep,
+            stream64, tmpdir, smi,
+        )
+    del sweep
     log(f"generic path {generic_s['device']:.3f} s (device backend), "
         f"{generic_s['host']:.3f} s (host backend) at {GENERIC_FRAMES} frames; "
         f"streamed featurized fit {stream_s:.3f} s (its Gram {stream_gram_s:.3f} s) at "
@@ -3154,6 +3930,22 @@ def main() -> int:
         f"streamed linear fit {linear_stream_s:.3f} s at {LINEAR_STREAM_FRAMES} frames; "
         f"first fit in a fresh process {warm['without']['first_fit_s']:.3f} s without "
         f"warm-up, {warm['with']['first_fit_s']:.3f} s with ({smi})")
+    def mesh_paths(kernel):
+        """Launches of ``kernel`` on the mesh paths: one NCCL rank's, and
+        each of the two gloo ranks' (one count per rank)."""
+        paths = {
+            f"mesh, one rank (NCCL): {label}": got[kernel]
+            for label, got in mesh_one.items() if got[kernel]
+        }
+        for label in mesh_two[0]:
+            per_rank = [rank[label][kernel] for rank in mesh_two]
+            if any(per_rank):
+                paths[f"mesh, two ranks on one card (gloo), per rank: {label}"] = per_rank
+        return paths
+
+    def mesh_total(kernel):
+        return sum(sum(v) if isinstance(v, list) else v for v in mesh_paths(kernel).values())
+
     kernels = [
         {
             "name": "site_grams",
@@ -3162,6 +3954,7 @@ def main() -> int:
             "replaces": "aggforce_tpu/ops/pallas_gram.py:36",
             "launches": (
                 launches + cv_launches + grid_launches + batch_launches + stream_launches
+                + mesh_total("site_grams")
             ),
             "launches_by_path": {
                 "config #3 fit (project_forces)": launches,
@@ -3172,24 +3965,27 @@ def main() -> int:
                 "streamed featurized fit (fused_gb_linear_map_streamed)": stream_launches,
                 "generic featurizer path (qp_feat_linear_map, allow_fused=False)": 0,
                 "streamed linear fit (qp_linear_map_streamed)": 0,
+                **mesh_paths("site_grams"),
             },
-            "max_abs_err": max(max_err, stream_err),
+            "max_abs_err": max(max_err, stream_err, shard_times["max_abs_err"]),
             **times,
             "at_fold_shape": fold_times,
             "at_stream_chunk_shape": stream_times,
+            "at_mesh_shard_shape": shard_times,
         },
         {
             "name": "site_grams_tiled",
             "route": "cuda",
             "source": "aggforce_torch/csrc/site_grams_tiled.cu",
             "replaces": "aggforce_tpu/ops/pallas_gram.py:313",
-            "launches": tiled_launches,
+            "launches": tiled_launches + mesh_total("site_grams_tiled"),
             "launches_by_path": {
                 "sweep fit (fused_gb_linear_map_blocked)": tiled_launches,
                 "config #2 (Gaussian maps)": 0,
                 "streamed featurized fit (fused_gb_linear_map_streamed)": 0,
                 "generic featurizer path (qp_feat_linear_map, allow_fused=False)": 0,
                 "streamed linear fit (qp_linear_map_streamed)": 0,
+                **mesh_paths("site_grams_tiled"),
             },
             "max_abs_err": tiled_err,
             **tiled_times,

@@ -198,17 +198,42 @@ def test_batch_matches_jax_batch(system):
         np.testing.assert_allclose(pf, np.asarray(jf), atol=2e-3 * np.abs(np.asarray(jf)).mean())
 
 
+@pytest.fixture
+def one_rank_mesh():
+    """A world-size-1 gloo group and its CPU mesh, destroyed after the test."""
+    from aggforce_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(backend="gloo")
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("entry", ["batch", "cv"])
-def test_new_mesh_arguments_wait_for_item_13(system, entry):
+def test_new_mesh_arguments_wait_for_item_13(system, one_rank_mesh, entry):
+    """The mesh arguments of the batch fits and the featurized CV (ROADMAP
+    Queue 1 item 13, now ported): on one rank the mesh path gives the
+    single-device results bit for bit (the frame share is every frame and
+    the all-reduces are sums of one); tests/test_torch_parallel.py runs
+    two ranks."""
     coords, forces = system
     cmap = pt.LinearMap(SITES, n_fg_sites=N_ATOMS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        if entry == "batch":
-            _batch(coords, forces, [1], mesh=object())
-        else:
-            from aggforce_torch.qp.cv import fused_gb_cv
-
-            fused_gb_cv(
-                coords, forces, cmap, GROUPS, KBT, pff.GBFeatSpec(outer=2.0),
-                [1e3], mesh=object(), device="cpu",
+    if entry == "batch":
+        plain = _batch(coords, forces, [1, 2, 3], flush_every=2)
+        meshed = _batch(coords, forces, [1, 2, 3], flush_every=2, mesh=one_rank_mesh)
+        for a, b in zip(plain, meshed):
+            np.testing.assert_array_equal(
+                np.stack(a.force_map.tags["coef_list"]), np.stack(b.force_map.tags["coef_list"])
             )
+    else:
+        from aggforce_torch.qp.cv import fused_gb_cv
+
+        tables = [
+            fused_gb_cv(
+                coords, forces, cmap, GROUPS, KBT, pff.GBFeatSpec(outer=2.0), [1e3],
+                n_folds=3, rng=np.random.default_rng(4), mesh=mesh, device="cpu",
+            )
+            for mesh in (None, one_rank_mesh)
+        ]
+        assert tables[0] == tables[1]

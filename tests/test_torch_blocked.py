@@ -271,7 +271,7 @@ def test_pipelined_blocks_equal_serial_blocks(system, monkeypatch, resid_tol):
 @pytest.mark.parametrize(
     "kw, error, match",
     [
-        ({"mesh": object()}, NotImplementedError, "Queue 1 item 13"),
+        ({"mesh": object()}, TypeError, "FrameMesh"),
         ({"use_kernel": True}, ValueError, "CUDA"),
         ({"use_kernel": "yes"}, ValueError, "use_kernel"),
     ],

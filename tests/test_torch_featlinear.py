@@ -217,13 +217,39 @@ def test_generic_map_applies_the_kbt_divergence(small_system):
     )
 
 
-def test_generic_path_mesh_raises(small_system):
+@pytest.fixture
+def one_rank_mesh():
+    """A world-size-1 gloo group and its CPU mesh, destroyed after the test."""
+    from aggforce_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(backend="gloo")
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_generic_path_mesh_raises(small_system, one_rank_mesh):
+    """The generic protocol path ignores a mesh, as the JAX package's does
+    (featlinearmap.py:215-218): with one it gives the single-device map,
+    bit for bit. A mesh argument that is not a mesh still raises."""
     coords, forces = small_system
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    traj = pt.Trajectory(coords=coords, forces=forces)
+    with pytest.raises(TypeError, match="FrameMesh"):
         pt.qp_feat_linear_map(
-            pt.Trajectory(coords=coords, forces=forces), _maps()[0], _user_featurizer,
-            KBT, allow_fused=False, mesh=object(), device="cpu",
+            traj, _maps()[0], _user_featurizer, KBT, allow_fused=False, mesh=object(),
+            device="cpu",
         )
+    maps = [
+        pt.qp_feat_linear_map(
+            traj, _maps()[0], _user_featurizer, KBT, allow_fused=False,
+            constraint_rng=np.random.default_rng(2), mesh=mesh, device="cpu",
+        )
+        for mesh in (None, one_rank_mesh)
+    ]
+    np.testing.assert_array_equal(
+        maps[0].map_arrays(coords, forces)[1], maps[1].map_arrays(coords, forces)[1]
+    )
 
 
 # every cg atom constrained to a partner: the smeared position then differs

@@ -359,13 +359,33 @@ def test_registry_names_the_port_builders():
     "builder", ["joptgauss_map", "stagedjoptgauss_map", "stagedjforcegauss_map"]
 )
 def test_mesh_raises(system, builder):
+    """Each builder that takes a mesh checks it (not a mesh: TypeError) and,
+    on one rank, gives the single-device maps bit for bit (the piecewise
+    path here: numpy data); tests/test_torch_parallel.py runs two ranks."""
+    from aggforce_torch.parallel import initialize_distributed, make_mesh
+
     coords, forces = system
     pcmap, _ = _cmaps()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(pgauss, builder)(
-            pt.Trajectory(coords=coords, forces=forces), pcmap, var=VAR, kbt=KBT,
-            mesh=object(), device="cpu",
-        )
+    traj = pt.Trajectory(coords=coords, forces=forces)
+    with pytest.raises(TypeError, match="FrameMesh"):
+        getattr(pgauss, builder)(traj, pcmap, var=VAR, kbt=KBT, mesh=object(), device="cpu")
+    initialize_distributed(backend="gloo")
+    try:
+        maps = [
+            getattr(pgauss, builder)(
+                traj, pcmap, var=VAR, kbt=KBT, constraints=GROUPS, seed=21, device="cpu",
+                **({} if mesh is None else {"mesh": mesh}),
+            )
+            for mesh in (None, make_mesh(device="cpu"))
+        ]
+    finally:
+        torch.distributed.destroy_process_group()
+    if builder == "joptgauss_map":
+        pairs = [(m.tmap.force_map,) for m in maps]
+    else:
+        pairs = [(m[1].force_map, m[0].tmap.force_map) for m in maps]
+    for a, b in zip(*pairs):
+        np.testing.assert_array_equal(a.standard_matrix, b.standard_matrix)
 
 
 def test_converted_jax_maps_apply_with_jax_draw(system, jax_draw):

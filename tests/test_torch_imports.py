@@ -29,7 +29,8 @@ def test_import_pulls_in_no_jax():
         "aggforce_torch.utils.serialize, aggforce_torch.utils.warmup, "
         "aggforce_torch.utils.prof, aggforce_torch.utils.debug, "
         "aggforce_torch.utils.devcache, aggforce_torch.utils.cache, "
-        "aggforce_torch.util, aggforce_torch.torchutil\n"
+        "aggforce_torch.util, aggforce_torch.torchutil, aggforce_torch.parallel, "
+        "aggforce_torch.parallel.mesh, aggforce_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m in ('jax', 'aggforce_tpu') "
         "or m.startswith(('jax.', 'aggforce_tpu.'))]\n"
         "print(bad)\n"

@@ -363,10 +363,27 @@ def test_native_build_failure_raises(system, monkeypatch):
 
 
 def test_mesh_raises(system):
+    """``mesh`` is checked (not a mesh: TypeError) and, on one rank, the
+    mesh fit is the single-device device fit bit for bit, its escalation
+    included; tests/test_torch_parallel.py runs two ranks."""
+    from aggforce_torch.parallel import initialize_distributed, make_mesh
+
     coords, forces = system
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        pql.qp_linear_map(
-            pt.Trajectory(coords=coords, forces=forces),
-            pt.LinearMap(SITES, n_fg_sites=N_ATOMS), GROUPS, mesh=object(),
-            device="cpu",
-        )
+    traj = pt.Trajectory(coords=coords, forces=forces)
+    cmap = pt.LinearMap(SITES, n_fg_sites=N_ATOMS)
+    with pytest.raises(TypeError, match="FrameMesh"):
+        pql.qp_linear_map(traj, cmap, GROUPS, mesh=object(), device="cpu")
+    initialize_distributed(backend="gloo")
+    try:
+        mesh = make_mesh(device="cpu")
+        for args in ({}, {"resid_tol": 0.0}):
+            opts = {"backend": "device", **args}
+            maps = [
+                pql.qp_linear_map(traj, cmap, GROUPS, solver_args=opts, mesh=m, device="cpu")
+                for m in (None, mesh)
+            ]
+            np.testing.assert_array_equal(
+                maps[0].force_map.standard_matrix, maps[1].force_map.standard_matrix
+            )
+    finally:
+        torch.distributed.destroy_process_group()

@@ -197,13 +197,72 @@ def test_streamed_fit_of_a_slice_is_the_fit_of_its_frames(system):
 
 
 def test_streamed_mesh_raises(system):
+    """Both streamed fits check ``mesh`` (not a mesh: TypeError) and, on one
+    rank, give the single-process streamed maps bit for bit;
+    tests/test_torch_distributed.py runs two ranks with frame slices."""
+    from aggforce_torch.parallel import initialize_distributed, make_mesh
+
     coords, forces = system
-    stream = TrajectoryStream.from_arrays(coords, forces)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    stream = TrajectoryStream.from_arrays(coords, forces, chunk_size=256)
+    with pytest.raises(TypeError, match="FrameMesh"):
         qp_linear_map_streamed(stream, _cmap(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(TypeError, match="FrameMesh"):
         fused_gb_linear_map_streamed(
             stream, _cmap(), kbt=KBT, spec=SPEC, mesh=object(), device="cpu"
+        )
+    initialize_distributed(backend="gloo")
+    try:
+        mesh = make_mesh(device="cpu")
+        lin = [
+            qp_linear_map_streamed(stream, _cmap(), set(GROUPS), mesh=m, device="cpu")
+            for m in (None, mesh)
+        ]
+        feat = [
+            fused_gb_linear_map_streamed(
+                stream, _cmap(), kbt=KBT, spec=SPEC, constraints=set(GROUPS),
+                constraint_rng=np.random.default_rng(3), mesh=m, device="cpu",
+            )
+            for m in (None, mesh)
+        ]
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_array_equal(lin[0].force_map.standard_matrix, lin[1].force_map.standard_matrix)
+    np.testing.assert_array_equal(
+        np.stack(feat[0].force_map.tags["coef_list"]), np.stack(feat[1].force_map.tags["coef_list"])
+    )
+
+
+def test_streamed_grams_take_any_chunk_source(system):
+    """The streamed Grams read a stream only through ``chunks(frame_slice)``,
+    ``chunk_size`` and ``n_sites``: a wrapper with just those gives the
+    stream's own Grams (with and without a frame slice)."""
+    coords, forces = system
+    stream = TrajectoryStream.from_arrays(coords, forces, chunk_size=128)
+
+    class Wrapped:
+        chunk_size, n_sites = stream.chunk_size, stream.n_sites
+
+        def chunks(self, frame_slice=None):
+            return stream.chunks(frame_slice)
+
+    labels_np, r = constraint_labels(N_ATOMS, set(GROUPS))
+    labels = torch.as_tensor(labels_np, dtype=torch.int64)
+    geom = group_factorization(_cmap(), SPEC, set(GROUPS))
+    consts = tuple(
+        torch.as_tensor(np.asarray(x), dtype=torch.float32)
+        for x in (
+            _cmap().standard_matrix, geom["group_mean"], geom["onehot"],
+            geom["counts"], geom["centers"],
+        )
+    )
+    for sl in (None, slice(100, 500)):
+        torch.testing.assert_close(
+            streamed_linear_gram(Wrapped(), labels, r, sl),
+            streamed_linear_gram(stream, labels, r, sl), rtol=0, atol=0,
+        )
+        torch.testing.assert_close(
+            streamed_site_grams(Wrapped(), consts, KBT, SPEC, sl),
+            streamed_site_grams(stream, consts, KBT, SPEC, sl), rtol=0, atol=0,
         )
 
 

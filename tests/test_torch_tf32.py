@@ -1,6 +1,7 @@
 """Full float32 under a process-wide TF32 switch: every product of the
-featurized paths, the Gaussian maps, the map validation and of the map
-applications runs with TF32 off (the JAX
+featurized paths, the Gaussian maps, the map validation, the map
+applications and the mesh fits (on a world-size-1 gloo group made and
+destroyed per call) runs with TF32 off (the JAX
 package's ``precision="highest"``), whichever of torch's two switches the
 process used, and the switch is back afterwards."""
 
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 import aggforce_torch as pt
+from aggforce_torch import parallel as par
 from aggforce_torch.ops import eqp as peqp
 from aggforce_torch.ops import gram as pgram
 from aggforce_torch.ops.torchcore import trjdot
@@ -59,12 +61,46 @@ def system():
     return coords, forces
 
 
-def _fit(coords, forces):
+def _fit(coords, forces, **kw):
     return pff.fused_gb_linear_map(
         pt.Trajectory(coords=coords, forces=forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
         kbt=KBT, spec=SPEC, constraints=GROUPS, l2_regularization=1e3,
-        n_constraint_frames=6, constraint_rng=np.random.default_rng(1), device="cpu",
+        n_constraint_frames=6, constraint_rng=np.random.default_rng(1), device="cpu", **kw,
     )
+
+
+@contextmanager
+def _one_rank():
+    """A world-size-1 gloo group's CPU mesh, the group destroyed on exit."""
+    par.initialize_distributed(backend="gloo")
+    try:
+        yield par.make_mesh(device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_fit(coords, forces):
+    with _one_rank() as mesh:
+        return _fit(coords, forces, mesh=mesh).force_map._coefs
+
+
+def _mesh_batch_fits(coords, forces):
+    with _one_rank() as mesh:
+        return _batch_fits(coords, forces, mesh=mesh)
+
+
+def _mesh_linear_fit(coords, forces):
+    with _one_rank() as mesh:
+        tmap = pt.qp_linear_map(
+            pt.Trajectory(coords=coords, forces=forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
+            GROUPS, mesh=mesh, device="cpu",
+        )
+    return torch.as_tensor(tmap.force_map.standard_matrix)
+
+
+def _mesh_staged_gauss(coords, forces):
+    with _one_rank() as mesh:
+        return _staged_gauss(coords, forces, mesh=mesh)
 
 
 def _pack(coords, forces):
@@ -93,11 +129,11 @@ def _batch_solve(coords, forces):
     return peqp.batched_eqp_solve_shared(P, A, B, iters=40, host_checks=False)
 
 
-def _batch_fits(coords, forces):
+def _batch_fits(coords, forces, **kw):
     maps = pff.fused_gb_linear_map_batch(
         pt.Trajectory(coords=coords, forces=forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
         kbt=KBT, spec=SPEC, seeds=[1, 2], constraints=GROUPS, l2_regularization=1e3,
-        n_constraint_frames=6, device="cpu",
+        n_constraint_frames=6, device="cpu", **kw,
     )
     return torch.stack([m.force_map._coefs for m in maps])
 
@@ -130,10 +166,10 @@ def _gauss_fit(coords, forces):
     return torch.as_tensor(tmap.tmap.force_map.standard_matrix)
 
 
-def _staged_gauss(coords, forces):
+def _staged_gauss(coords, forces, **kw):
     tmap = pt.stagedjoptgauss_map(
         _gauss_traj(coords, forces), pt.LinearMap(SITES, n_fg_sites=N_ATOMS),
-        var=0.002, kbt=KBT, constraints=GROUPS, seed=6,
+        var=0.002, kbt=KBT, constraints=GROUPS, seed=6, **kw,
     )
     return tuple(
         torch.as_tensor(m.standard_matrix) for m in (tmap[1].force_map, tmap[0].tmap.force_map)
@@ -173,6 +209,10 @@ PATHS = {
     "staged Gaussian fit": _staged_gauss,
     "Gaussian map application": _gauss_apply,
     "map validation": _map_validation,
+    "mesh featurized fit": _mesh_fit,
+    "mesh batch fits": _mesh_batch_fits,
+    "mesh linear fit": _mesh_linear_fit,
+    "mesh staged Gaussian fit": _mesh_staged_gauss,
 }
 
 

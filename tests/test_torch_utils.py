@@ -181,12 +181,23 @@ def test_warmup_target_must_take_the_phases_dict():
 
 
 def test_warm_featurized_fit_mesh_raises():
+    """``mesh`` is checked at the call (not a mesh: TypeError, before any
+    thread starts), and a one-rank mesh warm-up runs its mesh fit."""
+    from aggforce_torch.parallel import initialize_distributed, make_mesh
+
     cmap, constraints, _, _ = _system()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        warm_featurized_fit(
-            64, cmap, GBFeatSpec(outer=2.0, n_basis=3), constraints, mesh=object(),
-            device="cpu",
+    spec = GBFeatSpec(outer=2.0, n_basis=3)
+    with pytest.raises(TypeError, match="FrameMesh"):
+        warm_featurized_fit(64, cmap, spec, constraints, mesh=object(), device="cpu")
+    initialize_distributed(backend="gloo")
+    try:
+        handle = warm_featurized_fit(
+            64, cmap, spec, constraints, mesh=make_mesh(device="cpu"), device="cpu"
         )
+        handle.wait(timeout=120)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert handle.done and handle.error is None and handle.phases["fit"] > 0
 
 
 # --- devcache -----------------------------------------------------------------
