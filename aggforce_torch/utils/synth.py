@@ -1,9 +1,11 @@
 """Synthetic molecular-trajectory fixtures (seeded).
 
-``synthesize_trajectory``, ``synthesize_protein_fixture`` and
-``synthesize_dimer_fixture`` are copies of the JAX package's
-``utils/synth.py`` (numpy), so both packages build the same trajectories
-from the same seed. ``synthesize_trajectory_device`` builds the same kind of
+``synthesize_trajectory``, ``synthesize_protein_fixture``,
+``synthesize_dimer_fixture`` and ``reference_waterdimer`` are copies of the
+JAX package's ``utils/synth.py`` (numpy), so both packages build the same
+trajectories from the same seed. ``example_system`` picks the system of the
+example scripts: a PDB's CLN025-style fixture, or the JAX bench's
+standalone system. ``synthesize_trajectory_device`` builds the same kind of
 trajectory on the torch device, with a torch generator: its random stream
 differs from numpy's. The fixtures have:
 
@@ -16,7 +18,9 @@ differs from numpy's. The fixtures have:
   * per-atom thermal noise.
 """
 
-from typing import Dict, List, Tuple
+import os
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +29,9 @@ from ..constraints.tools import reduce_constraint_sets
 from .device import DeviceLike, resolve_device
 from .pdblite import guess_h_bond_groups, pdb_coordinates
 
+# the upstream water-dimer fixture, where the reference's test data sits in
+# a checkout of this repository (absent until it is added)
+WATERDIMER = str(Path(__file__).resolve().parents[2] / "tests" / "data" / "waterdimer.npz")
 # frames built per step of synthesize_trajectory_device: its transient
 # buffers stay ~1 GB at 3,000 atoms beside the two full outputs
 DEVICE_BLOCK = 8192
@@ -258,3 +265,51 @@ def synthesize_dimer_fixture(
         "coords": coords.astype(np.float32),
         "forces": forces.astype(np.float32),
     }
+
+
+def reference_waterdimer(path: str = WATERDIMER) -> Optional[Dict[str, np.ndarray]]:
+    """Load the upstream water-dimer data fixture if present (else None)."""
+    if not os.path.exists(path):
+        return None
+    data = np.load(path)
+    return {"coords": data["coords"], "forces": data["Fs"]}
+
+
+def standalone_fixture(n_frames: int, seed: int = 2024) -> Dict[str, np.ndarray]:
+    """The JAX bench's standalone system (bench.py:290-307): 175 atoms
+    (base coordinates from ``default_rng(0)``), 30 constraint pairs, a cg
+    site on every 18th atom, kbT 0.6955215; the trajectory from ``seed``.
+    Returns the keys of :func:`synthesize_protein_fixture` plus
+    ``cg_sites``, the atoms of each cg site."""
+    n_atoms = 175
+    base = np.random.default_rng(0).normal(scale=0.5, size=(n_atoms, 3))
+    groups = [frozenset((i, i + 1)) for i in range(0, 60, 2)]
+    coords, forces = synthesize_trajectory(base, groups, n_frames, seed=seed)
+    return {
+        "coords": coords,
+        "forces": forces,
+        "kbt": np.float64(0.6955215),
+        "constraint_groups": groups,
+        "cg_sites": [[i] for i in range(0, n_atoms, 18)],
+    }
+
+
+def example_system(n_frames: int, seed: int, pdb: Optional[str] = None):
+    """(fixture, LinearMap, label) of the example scripts' system.
+
+    With ``pdb`` the CLN025-style fixture of that topology and its C-alpha
+    map (the JAX examples' system); without it :func:`standalone_fixture`.
+    Both trajectories come from ``seed``. A ``pdb`` that names no file
+    raises FileNotFoundError.
+    """
+    from ..map import LinearMap
+    from .pdblite import ca_map_from_pdb, n_atoms
+
+    if pdb is None:
+        fix = standalone_fixture(n_frames, seed=seed)
+        cmap = LinearMap(fix["cg_sites"], n_fg_sites=fix["coords"].shape[1])
+        return fix, cmap, "standalone (bench.py:290-307)"
+    if not os.path.exists(pdb):
+        raise FileNotFoundError(f"missing topology fixture: {pdb}")
+    fix = synthesize_protein_fixture(pdb, n_frames=n_frames, seed=seed)
+    return fix, LinearMap(ca_map_from_pdb(pdb), n_fg_sites=n_atoms(pdb)), f"pdb {pdb}"

@@ -93,7 +93,7 @@ fails:
    optimized maps correlate above 0.9 and differ below 0.1 (a map with
    M F^T = 1.5 I must fail); (6) with TF32 on, a fit reads the same bits;
    (7) no Gram kernel launches. Then times, a profiled fit and peak memory;
-9. one JSON line listing every kernel, printed after phase 14; the last
+9. one JSON line listing every kernel, printed after phase 15; the last
    line is the result;
 10. the generic featurizer path at config #3 width on 2,000 frames (cut
    from 10,000: it holds each site's (T, N, K_exp) features on the host, as
@@ -143,6 +143,29 @@ fails:
    all-reduces (bytes, seconds) per rank are printed; two ranks on one card
    show correctness and the collectives' cost, not scaling. Then kernel 1
    at the per-rank shard shape.
+
+15. the example twins (``examples/torch_*.py``), each loaded by path and
+   driven through its ``main`` on the card at the JAX examples' sizes:
+   ``torch_gauss`` (2,000 frames; no kernel; its linear residual within
+   1e-5 of the float64 witness's of phase 7b, which a fit without
+   constraints must miss; the staged map's matrices after save/load),
+   ``torch_production_fit`` (2,000 frames; kernel 1 once for the warm-up,
+   once for the fit and once per 512-frame chunk; the fit and the streamed
+   fit within 1e-4 of their float64 optimum; the map after save/load
+   within 1e-6; then once more as a fresh process), ``torch_bootstrap``
+   (32 maps in windows of 16, kernel 1 once per window, every fit finite
+   with its solver residual within 1e-4; on the synthetic dimer and on
+   phase 4's fixture as ``--data``, K_exp = 1,050, where the kernel's Gram
+   lies within 1e-6 of a float64 sum; the fits' distance to their float64
+   optimum is printed: l2 = 1e1 is below the solver's fixed ridge there)
+   and ``torch_cv_feat --quick`` (2,000 frames, 5 folds; the grid
+   cut to 2 featurizers x 2 l2 values, their width not cut; kernel 1 once
+   per fold of each featurizer and once for the refit; the 30 pairs
+   detected; its scores equal to a direct ``fused_gb_cv_grid`` bit for bit;
+   the refit of the best point within phase 5's limit, 1e-4 + cond *
+   2**-24, of the float64 optimum of the problem its solver poses). Each
+   gate has a planted fault that must fail. Then kernel 1 against its
+   plain version and timed at each shape the examples gave it.
 
 ``python3 chip_smoke.py --warmup-child with|without BUILD_DIR`` is phase
 13's subprocess and ``python3 chip_smoke.py --mesh-child RANK WORLD STORE``
@@ -549,25 +572,28 @@ def kernel_report(name, ms, stages, flops, n_bytes, library_ms, plain_ms):
     bound_ms = max(tc_ms, bytes_ms)
     bound_by = "operations" if tc_ms >= bytes_ms else "bytes"
     log(f"{name}: {ms:.3f} ms per launch, {flops / ms / 1e9:.2f} TFLOP/s of unique "
-        f"entries ({TF32_PASSES * flops / ms / 1e9:.2f} TFLOP/s of TF32 products); "
-        f"build stage {stages['build']:.3f} ms, product stage "
-        f"{stages['product']:.3f} ms ({TF32_PASSES * flops / stages['product'] / 1e9:.2f} "
-        f"TFLOP/s TF32)")
-    staged = stages["build"] + stages["product"]
-    if not abs(staged - ms) <= 0.05 * ms:
-        fail(f"{name}: the stages add up to {staged:.3f} ms, not within 5% of the "
-             f"launch's {ms:.3f} ms")
-    log(f"{name}: bound {bound_ms:.3f} ms ({bound_by}; {TF32_PASSES}x{flops:.4g} "
+        f"entries ({TF32_PASSES * flops / ms / 1e9:.2f} TFLOP/s of TF32 products)")
+    if stages is not None:
+        log(f"{name}: build stage {stages['build']:.3f} ms, product stage "
+            f"{stages['product']:.3f} ms "
+            f"({TF32_PASSES * flops / stages['product'] / 1e9:.2f} TFLOP/s TF32)")
+        staged = stages["build"] + stages["product"]
+        if not abs(staged - ms) <= 0.05 * ms:
+            fail(f"{name}: the stages add up to {staged:.3f} ms, not within 5% of the "
+                 f"launch's {ms:.3f} ms")
+    log(f"{name}: bound {bound_ms:.4g} ms ({bound_by}; {TF32_PASSES}x{flops:.4g} "
         f"TF32 FLOP at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {n_bytes:.4g} B at "
-        f"{PEAK_BYTES / 1e12:.2f} TB/s), fp32 CUDA-core bound {fp32_ms:.3f} ms; "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s), fp32 CUDA-core bound {fp32_ms:.4g} ms; "
         f"{ms / bound_ms:.2f}x the bound; plain {plain_ms:.3f} ms; torch.bmm "
         f"yardstick {library_ms:.3f} ms, which the kernel "
         f"{'beats' if ms < library_ms else 'does NOT beat'} ({library_ms / ms:.2f}x)")
-    return dict(
+    report = dict(
         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-        bound_by=bound_by, fp32_bound_ms=fp32_ms, build_ms=stages["build"],
-        product_ms=stages["product"],
+        bound_by=bound_by, fp32_bound_ms=fp32_ms,
     )
+    if stages is not None:
+        report.update(build_ms=stages["build"], product_ms=stages["product"])
+    return report
 
 
 def plain_fit(np, coords, forces, cmap, groups, featurizer, **kwargs):
@@ -587,7 +613,7 @@ def plain_fit(np, coords, forces, cmap, groups, featurizer, **kwargs):
     return plain_map, plain_map.map_arrays(coords, forces)[1]
 
 
-def fit_problem(torch, np, coords, forces, cmap, groups, spec, dtype, gram_fn, seed=7):
+def fit_problem(torch, np, coords, forces, cmap, groups, spec, dtype, gram_fn, seed=7, l2=L2):
     """The main path's per-site QP on the card, (Gram + l2, constraint rows,
     targets), built by the fit's own assembly in ``dtype`` with ``gram_fn``
     on the 20 constraint frames that ``fused_gb_linear_map`` draws from
@@ -607,7 +633,7 @@ def fit_problem(torch, np, coords, forces, cmap, groups, spec, dtype, gram_fn, s
         xyz, dev(forces), torch.ones(len(coords), dtype=dtype, device="cuda"),
         xyz[torch.as_tensor(frame_idx, device="cuda")], dev(cmap.standard_matrix),
         dev(geom["group_mean"]), dev(geom["onehot"]), dev(geom["counts"]),
-        dev(geom["centers"]), KBT, L2, spec, gram_fn,
+        dev(geom["centers"]), KBT, l2, spec, gram_fn,
     )
 
 
@@ -953,10 +979,13 @@ def real_columns(rows, n_basis, g):
     return blocks[..., :g].reshape(s_dim, n_rows, (1 + n_basis) * g)
 
 
-def gram_kernel_times(torch, ops, n_basis, name):
+def gram_kernel_times(torch, ops, n_basis, name, stages=True):
     """Kernel 1 on the operands ``ops`` (as ``packed_operands`` returns
     them): its time, its plain version's, ``torch.bmm`` of the materialized
-    rows, its stages and its bounds (``kernel_report``)."""
+    rows, its stages and its bounds (``kernel_report``). With ``stages``
+    False the launch time is the median of TIMING_ROUNDS means after
+    ``warm_card``, without the stage probe (whose events would weigh on a
+    launch of tens of microseconds)."""
     from aggforce_torch.ops.gram import (
         design_rows,
         site_grams,
@@ -982,9 +1011,18 @@ def gram_kernel_times(torch, ops, n_basis, name):
         2 * 3 * t * g + cg.numel() + mask.numel() + 2 * k_exp + s_dim * k_exp * k_exp
     )
     n_chunks = -(-t // workspace_shapes(t, s_dim, k_pad)[0])
-    kernel_ms, stages = launch_and_stage_ms(
-        torch, False, lambda: site_grams(*args), args, 10, n_chunks
-    )
+    if stages:
+        kernel_ms, stages = launch_and_stage_ms(
+            torch, False, lambda: site_grams(*args), args, 10, n_chunks
+        )
+    else:
+        from statistics import median
+
+        warm_card(torch, lambda: site_grams(*args))
+        rounds = [cuda_ms(torch, lambda: site_grams(*args), 20) for _ in range(TIMING_ROUNDS)]
+        kernel_ms, stages = median(rounds), None
+        log(f"{TIMING_ROUNDS} rounds after {WARM_MS:.0f} ms of warm-up: launch "
+            f"{', '.join(f'{x:.4f}' for x in rounds)} ms (mean of 20)")
     return kernel_report(name, kernel_ms, stages, flops, n_bytes, library_ms, plain_ms)
 
 
@@ -3868,6 +3906,429 @@ def phase_mesh(torch, np, coords, forces, cmap, groups, spec, problem64, cv_tabl
     return one, two, shard_times
 
 
+# --- phase 15, the example twins ----------------------------------------------
+
+# the JAX examples' own sizes: 2,000 frames (gauss, production_fit, cv_feat),
+# 32 bootstrap maps in windows of 16; cv_feat with --quick (2 featurizers x
+# 2 l2 values, their width not cut) over 5 folds; production_fit streams
+# 512-frame chunks (4 chunks of 2,000 frames, a ragged last one of 464)
+EXAMPLE_FRAMES = 2_000
+BOOT_MAPS, BOOT_WINDOW = 32, 16
+CVFEAT_FOLDS = 5
+PROD_CHUNK = 512
+# the gauss example's linear residual against the residual of phase 7's
+# float64 witness (``sweep_witness``) on the same frames, relative
+GAUSS_RESID_LIMIT = 1e-5
+EXAMPLE_CHILD_TIMEOUT_S = 300
+
+
+def example_path(name):
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "examples" / f"{name}.py"
+
+
+def load_example(name):
+    """An example script by path, as a module (examples/ is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", example_path(name))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_example(torch, name, argv, want, failed):
+    """``main(argv)`` of an example twin, every count set to 0 just before
+    and read just after; the (site_grams, site_grams_tiled) launches must be
+    ``want``. Returns (its result, site_grams launches, seconds)."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_tiled
+
+    module = load_example(name)
+    log(f"examples/{name}.py {' '.join(argv)}:")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = module.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (site_grams.launches, site_grams_tiled.launches)
+    log(f"  {name}: {secs:.3f} s; site_grams launches {got[0]}, site_grams_tiled "
+        f"launches {got[1]} (must be {want[0]} and {want[1]})")
+    if got != want:
+        failed.append(f"{name} launched the Gram kernels {got} times, not {want}")
+    return out, got[0], secs
+
+
+def example_fit_gate(torch, np, label, fits, problem, failed, gate=True, contract=False):
+    """Each fit of ``fits`` ({name: (seed, (S, K_exp) coefficients)}) within
+    J_GAP_LIMIT of the float64 optimum for the constraint values it meets,
+    on the problem of its constraint seed (``fit_problem`` with ``problem``'s
+    arguments); a float64 solve of the first seed's problem on a Gram
+    without the divergence term, the planted fault, must miss it. With
+    ``contract`` the witness solves the problem the solver poses (its
+    SOLVER_DELTA ridge on the normalized Gram) and the limit is phase 5's,
+    J_GAP_LIMIT + cond * 2**-24 with cond the largest over the sites; the
+    distance to the unridged optimum is printed beside it. With ``gate``
+    False the gaps are printed only."""
+    from aggforce_torch.ops.gram import site_grams_plain
+
+    fault = None
+    for name, (seed, coefs) in fits.items():
+        gram64, rows64, b64 = fit_problem(
+            torch, np, dtype=torch.float64, gram_fn=site_grams_plain, seed=seed, **problem
+        )
+        gram, rows = gram64.cpu().numpy(), rows64.cpu().numpy()
+        n = gram.shape[1]
+        p = np.einsum("sii->s", gram) / n
+        posed = gram + SOLVER_DELTA * p[:, None, None] * np.eye(n)
+        ev = np.linalg.eigvalsh(posed / p[:, None, None])
+        cond = float((ev[:, -1] / ev[:, 0]).max())
+        limit = J_GAP_LIMIT + cond * F32_EPS if contract else J_GAP_LIMIT
+        witness = posed if contract else gram
+        log(f"  {label}, {name}: l2 over the mean diagonal of the regularized Gram "
+            f"{(problem['l2'] / p).min():.3e} to {(problem['l2'] / p).max():.3e} over "
+            f"the sites (the solver's ridge {SOLVER_DELTA:.0e}); condition of the problem "
+            f"it poses {cond:.3e}, so cond * 2**-24 = {cond * F32_EPS:.3e}")
+        candidates = {name: np.asarray(coefs, np.float64)}
+        if fault is None:
+            fault = device_solve(fit_problem(
+                torch, np, dtype=torch.float32, gram_fn=without_divergence, seed=seed,
+                **problem,
+            )[0].double(), rows64, b64)
+            candidates["planted fault: no divergence term"] = fault
+        for key, c in candidates.items():
+            gap = objective_gap(np, witness, rows, c)[0]
+            note = (f"; to the unridged optimum {objective_gap(np, gram, rows, c)[0]:+.3e}"
+                    if contract else "")
+            log(f"  {label}, {key}: objective gap to its float64 witness{' (ridged)' if contract else ''} "
+                f"{gap:+.3e} (limit {limit:.3e}{'' if gate else ', printed, not gated'}){note}")
+            if not gate:
+                continue
+            if key.startswith("planted fault"):
+                if not gap > limit:
+                    failed.append(f"{label}: the objective gate does not reject the "
+                                  f"planted fault")
+            elif not gap <= limit:
+                failed.append(f"{label}, {key}: objective gap {gap:.3e} above {limit:.3e}")
+
+
+def moved(x):
+    """A copy of ``x`` with its first entry moved by 1e-3 of its largest."""
+    y = x.clone()
+    y.view(-1)[0] += 1e-3 * float(x.abs().max())
+    return y
+
+
+def round_trip_gate(label, before, after, planted, failed):
+    """A map after save_tmap/load_tmap maps like the map saved: largest
+    difference within SERIALIZE_REL_LIMIT of the largest entry; ``planted``
+    (the loaded map with one coefficient moved by ``moved``) must not."""
+    scale = float(before.abs().max())
+    rel = float((after - before).abs().max()) / scale
+    rel_fault = float((planted - before).abs().max()) / scale
+    log(f"  {label} after save/load: {rel:.3e} of the largest entry off (limit "
+        f"{SERIALIZE_REL_LIMIT:.0e}); planted fault {rel_fault:.3e}")
+    if not rel <= SERIALIZE_REL_LIMIT:
+        failed.append(f"{label}: the save/load round trip")
+    if not rel_fault > SERIALIZE_REL_LIMIT:
+        failed.append(f"{label}: the round-trip gate does not reject the planted fault")
+
+
+def examples_gauss(torch, np, failed):
+    """examples/torch_gauss.py: no kernel; its linear residual against the
+    residual of phase 7's float64 witness on the same frames (a fit without
+    constraints, the planted fault, must miss it); the staged map's
+    matrices after save/load. Returns its seconds."""
+    import aggforce_torch
+
+    out, _, secs = run_example(
+        torch, "torch_gauss", ["--device", "cuda", "--frames", str(EXAMPLE_FRAMES)], (0, 0),
+        failed,
+    )
+    log(f"  residuals {out['residuals']}; phase seconds {out['phase_s']}")
+    forces = torch.as_tensor(out["forces"], device="cuda")
+    cmap, groups = out["coord_map"], out["constraints"]
+    witness = sweep_witness(torch, np, forces, cmap, groups)
+    expect = float(torch.mean(torch.einsum("sn,tnd->tsd", witness, forces.double()) ** 2))
+    fault = aggforce_torch.project_forces(
+        out["coords"], out["forces"], cmap, constrained_inds=set(), device="cuda"
+    )["residual"]
+    for name, value in (("the example's linear residual", out["residuals"]["linear"]),
+                        ("planted fault: constrained_inds=set()", float(fault))):
+        rel = abs(value - expect) / expect
+        log(f"  {name} {value:.6f} against the float64 witness's {expect:.6f}: "
+            f"{rel:.3e} relative (limit {GAUSS_RESID_LIMIT:.0e})")
+        if name.startswith("planted"):
+            if not rel > GAUSS_RESID_LIMIT:
+                failed.append("gauss: the residual gate does not reject the planted fault")
+        elif not rel <= GAUSS_RESID_LIMIT:
+            failed.append("gauss: the linear residual misses the float64 witness")
+    staged, loaded = out["staged_map"], out["reloaded_map"]
+    for name, a, b in (
+        ("gauss premap force map", staged[1].force_map, loaded[1].force_map),
+        ("gauss noise-site force map", staged[0].tmap.force_map, loaded[0].tmap.force_map),
+    ):
+        after = torch.as_tensor(np.asarray(b.standard_matrix))
+        round_trip_gate(
+            name, torch.as_tensor(np.asarray(a.standard_matrix)), after, moved(after), failed
+        )
+    return secs
+
+
+def examples_production(torch, np, tmpdir, failed):
+    """examples/torch_production_fit.py in this process (kernel 1 once for
+    the warm-up, once for the fit and once per 512-frame chunk; the fit and
+    the streamed fit within J_GAP_LIMIT of their float64 optimum; the map
+    after save/load) and once more as a fresh process. Returns (the result,
+    its kernel-1 launches, seconds, the fresh process's seconds)."""
+    import os
+
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec
+    from aggforce_torch.utils.serialize import load_tmap
+
+    n_chunks = -(-EXAMPLE_FRAMES // PROD_CHUNK)
+    out, launches, secs = run_example(
+        torch, "torch_production_fit",
+        ["--device", "cuda", "--frames", str(EXAMPLE_FRAMES),
+         "--workdir", os.path.join(tmpdir, "production")],
+        (2 + n_chunks, 0), failed,
+    )
+    log(f"  load {out['load_s']:.3f} s beside a warm-up of {out['warmup_s']:.3f} s "
+        f"({out['exposed_s']:.3f} s exposed); fit {out['fit_s']:.3f} s; streamed fit "
+        f"{out['stream_s']:.3f} s, mapped-force RMS {out['stream_rms']:.3e} off the "
+        f"in-memory fit")
+    example_fit_gate(
+        torch, np, "production",
+        {name: (0, np.stack(out[key].force_map.tags["coef_list"]))
+         for name, key in (("in-memory fit", "tmap"), ("streamed fit", "streamed"))},
+        dict(coords=out["coords"], forces=out["forces"], cmap=out["coord_map"],
+             groups=out["constraints"], l2=1e3,
+             spec=GBFeatSpec(outer=8.0, inner=0.0, n_basis=7, width=1.0)),
+        failed,
+    )
+    x = torch.as_tensor(out["coords"], device="cuda")
+    f = torch.as_tensor(out["forces"], device="cuda")
+    loaded = load_tmap(os.path.join(out["workdir"], "force_map.npz"))
+    after = loaded.force_map(f, x)
+    loaded.force_map._coefs = moved(loaded.force_map._coefs)
+    round_trip_gate(
+        "production map", out["tmap"].force_map(f, x), after, loaded.force_map(f, x), failed
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(example_path("torch_production_fit")),
+         "--frames", str(EXAMPLE_FRAMES), "--workdir", os.path.join(tmpdir, "production2")],
+        capture_output=True, text=True, timeout=EXAMPLE_CHILD_TIMEOUT_S,
+    )
+    child_s = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  fresh process | {line}")
+    log(f"  fresh process: exit {proc.returncode}, {child_s:.1f} s")
+    if proc.returncode != 0 or "production fit demo OK" not in proc.stdout:
+        failed.append(f"production_fit in a fresh process: exit {proc.returncode}, "
+                      f"{proc.stderr[-1500:]}")
+    return out, launches, secs, child_s
+
+
+def examples_bootstrap(torch, np, coords10k, forces10k, tmpdir, failed):
+    """examples/torch_bootstrap.py on the synthetic dimer and with --data at
+    phase 4's fixture (K_exp = 1,050 at S = 2): kernel 1 once per window;
+    every fit finite with its solver residual within 1e-4 (the fit's own
+    check of the constraints it meets, after any float64 escalation). The
+    first and last seed of each window are printed against their float64
+    optimum, not gated: the example's l2 = 1e1 sits below the solver's fixed
+    ridge at these widths (l2 over the mean diagonal ~4e-7 at the fixture's
+    width, ~2e-6 on the dimer, against 1e-6), so the fits solve a more
+    regularized problem, in the JAX package's algorithm as in the port
+    (ROADMAP, Queue 3); ``example_kernel_shapes`` gates the Gram at the
+    fixture's width instead. Returns {run: (result, kernel-1 launches,
+    seconds)}."""
+    import os
+
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec
+
+    path = os.path.join(tmpdir, "fixture10k.npz")
+    np.savez(path, coords=coords10k, Fs=forces10k)
+    argv = ["--device", "cuda", "--n-maps", str(BOOT_MAPS), "--window", str(BOOT_WINDOW)]
+    windows = -(-BOOT_MAPS // BOOT_WINDOW)
+    seeds = sorted({s for w in range(windows)
+                    for s in (w * BOOT_WINDOW, min((w + 1) * BOOT_WINDOW, BOOT_MAPS) - 1)})
+    runs = {}
+    for run, extra in (("dimer", []), ("fixture width", ["--data", path])):
+        out, launches, secs = run_example(
+            torch, "torch_bootstrap", argv + extra, (windows, 0), failed
+        )
+        runs[run] = (out, launches, secs)
+        escalated = sum(bool(m.force_map.tags["escalated"]) for m in out["maps"])
+        log(f"  {run}: {out['source']}; {escalated} of {BOOT_MAPS} fits escalated to the "
+            f"float64 host solve; {out['seconds'] * 1e3 / BOOT_MAPS:.3f} ms per map; "
+            f"coefficient spread {out['coef_spread']:.4f}, mean squared mapped force "
+            f"{out['msf'].mean():.6f} +/- {out['msf'].std():.6f}, largest solver residual "
+            f"{out['resids'].max():.2e}")
+        finite = all(bool(torch.isfinite(m.force_map._coefs).all()) for m in out["maps"])
+        if not finite or not out["resids"].max() <= 1e-4:
+            failed.append(f"bootstrap ({run}): fits not finite ({not finite}) or a solver "
+                          f"residual {out['resids'].max():.2e} above 1e-4")
+        example_fit_gate(
+            torch, np, f"bootstrap ({run})",
+            {f"seed {s}": (s, np.stack(out["maps"][s].force_map.tags["coef_list"]))
+             for s in seeds},
+            dict(coords=out["coords"], forces=out["forces"], cmap=out["coord_map"],
+                 groups=set(), l2=1e1,
+                 spec=GBFeatSpec(outer=1.0, inner=0.0, n_basis=5, width=1.0)),
+            failed, gate=False,
+        )
+    return runs
+
+
+def examples_cv_feat(torch, np, tmpdir, failed):
+    """examples/torch_cv_feat.py --quick: kernel 1 once per fold of each
+    featurizer and once for the refit; the 30 synthesized pairs detected;
+    its CV scores equal bit for bit to a direct ``fused_gb_cv_grid`` with the
+    same folds (the direct table read with the l2 values swapped, the
+    planted fault, must not be); the refit of the best point against the
+    float64 optimum of the problem its solver poses, within phase 5's limit
+    J_GAP_LIMIT + cond * 2**-24 (the best point can be l2 = 10, where the
+    float32 solve resolves the problem to about that). Returns (the result,
+    its kernel-1 launches, seconds)."""
+    import os
+
+    from aggforce_torch.agg import SCORES_KNAME, SDS_KNAME
+    from aggforce_torch.qp.cv import fused_gb_cv_grid
+    from aggforce_torch.qp.fusedfeat import recognize_canonical_featurizer
+
+    n_feats = 2
+    out, launches, secs = run_example(
+        torch, "torch_cv_feat",
+        ["--device", "cuda", "--frames", str(EXAMPLE_FRAMES), "--folds", str(CVFEAT_FOLDS),
+         "--quick", "--csv", os.path.join(tmpdir, "cv_feat.csv")],
+        (n_feats * CVFEAT_FOLDS + 1, 0), failed,
+    )
+    _, expect_groups, _ = fixture_geometry()
+    found = out["constraints"]
+    log(f"  {len(found)} pairs detected, equal to the {len(expect_groups)} synthesized: "
+        f"{found == set(expect_groups)}; control score {out['control_score']:.4f}, best "
+        f"{out['best_score']:.4f}, refit residual {out['refit_residual']:.4f}")
+    if found != set(expect_groups):
+        failed.append("cv_feat: the detected constraints are not the synthesized pairs")
+    feats, l2s = out["featurizers"], out["l2s"]
+    specs = [recognize_canonical_featurizer(f) for f in feats]
+    t0 = time.perf_counter()
+    direct = fused_gb_cv_grid(
+        out["coords"], out["forces"], out["coord_map"], found, out["kbt"], specs, l2s,
+        n_folds=CVFEAT_FOLDS, n_constraint_frames=20, rng=np.random.default_rng(0),
+        device="cuda",
+    )
+    direct_s = time.perf_counter() - t0
+    swapped = dict(zip(l2s, reversed(l2s)))
+    equal, fault_equal = True, True
+    for label, score in out["results"][SCORES_KNAME].items():
+        fi, l2 = feats.index(label.featurizer), float(label.l2_regularization)
+        mean, sd, _ = direct[(fi, l2)]
+        planted = direct[(fi, float(swapped[l2]))][0]
+        equal &= score == mean and out["results"][SDS_KNAME][label] == sd
+        fault_equal &= score == planted
+        log(f"  n_basis {specs[fi].n_basis}, l2 {l2:g}: score {score:.6f}, direct "
+            f"fused_gb_cv_grid {mean:.6f}, planted fault (l2 swapped) {planted:.6f}")
+    log(f"  the example's scores equal the direct call's ({direct_s:.3f} s) bit for bit: "
+        f"{equal}; the planted fault's: {fault_equal}")
+    if not equal:
+        failed.append("cv_feat: the example's CV scores differ from fused_gb_cv_grid's")
+    if fault_equal:
+        failed.append("cv_feat: the score gate does not reject the planted fault")
+    best = out["best"]
+    tags = out["refit"]["tmap"].force_map.tags
+    log(f"  refit of the best point: solver residual {tags['solver_resid']:.2e}, escalated "
+        f"{tags['escalated']}")
+    example_fit_gate(
+        torch, np, "cv_feat refit",
+        {"refit of the best point": (0, np.stack(tags["coef_list"]))},
+        dict(coords=out["coords"], forces=out["forces"], cmap=out["coord_map"],
+             groups=found, l2=float(best.l2_regularization),
+             spec=recognize_canonical_featurizer(best.featurizer)),
+        failed, contract=True,
+    )
+    return out, launches, secs
+
+
+def example_kernel_shapes(torch, np, prod, boot, cv):
+    """Kernel 1 against its plain version (phase 1's atol) at the shapes the
+    examples gave it, at the bootstrap's fixture width also against a
+    float64 sum (phase 3's gate, with its planted fault), and its times at
+    them (``gram_kernel_times`` without the stage probe). Returns ({shape:
+    report}, max abs error)."""
+    from aggforce_torch.qp.cv import _fold_segments
+    from aggforce_torch.qp.fusedfeat import GBFeatSpec, recognize_canonical_featurizer
+
+    boot_spec = GBFeatSpec(outer=1.0, inner=0.0, n_basis=5, width=1.0)
+    prod_spec = GBFeatSpec(outer=8.0, inner=0.0, n_basis=7, width=1.0)
+    fold = _fold_segments(EXAMPLE_FRAMES, CVFEAT_FOLDS, np.random.default_rng(0))[0]
+    tail = EXAMPLE_FRAMES - (EXAMPLE_FRAMES // PROD_CHUNK) * PROD_CHUNK
+    shapes = []
+    for run, (out, _, _) in boot.items():
+        t = len(out["coords"])
+        shapes.append((f"bootstrap, {run} (T={t}, S=2)", out["coords"], out["forces"],
+                       out["coord_map"], set(), boot_spec, True))
+    shapes += [
+        (f"production_fit, streamed chunk (T={PROD_CHUNK})", prod["coords"][:PROD_CHUNK],
+         prod["forces"][:PROD_CHUNK], prod["coord_map"], prod["constraints"], prod_spec, True),
+        (f"production_fit, last streamed chunk (T={tail})", prod["coords"][-tail:],
+         prod["forces"][-tail:], prod["coord_map"], prod["constraints"], prod_spec, False),
+    ]
+    for feat in cv["featurizers"]:
+        spec = recognize_canonical_featurizer(feat)
+        shapes.append((f"cv_feat fold, n_basis {spec.n_basis} (T={len(fold)})",
+                       cv["coords"][fold], cv["forces"][fold], cv["coord_map"],
+                       cv["constraints"], spec, True))
+    reports, errs = {}, []
+    for label, coords, forces, cmap, groups, spec, timed in shapes:
+        ops = packed_operands(torch, coords, forces, cmap, groups, spec)
+        g_pad, s = ops[0].shape[2], ops[1].shape[0]
+        g = real_groups(ops[5][:g_pad])
+        label = f"{label}, G={g}, K_exp={g * (1 + spec.n_basis)}"
+        errs.append(compare_kernel(torch, ops, spec.n_basis, label))
+        if label.startswith("bootstrap, fixture width"):
+            gram_error_vs_float64(ops, spec.n_basis)
+        if timed:
+            reports[label] = gram_kernel_times(
+                torch, ops, spec.n_basis, f"site_grams at {label}", stages=False
+            )
+        del ops
+    return reports, max(errs)
+
+
+def phase_examples(torch, np, coords10k, forces10k, smi, tmpdir):
+    """Phase 15: the four example twins on the card, each loaded by path and
+    driven through its ``main`` (production_fit also as a fresh process),
+    at the JAX examples' sizes (cv_feat's grid cut to --quick, its width
+    not); their gates; kernel 1 at their shapes. Returns ({path: kernel-1
+    launches}, {shape: kernel-1 report}, max abs error, seconds)."""
+    t_phase = time.perf_counter()
+    failed = []
+    gauss_s = examples_gauss(torch, np, failed)
+    prod, prod_launches, prod_s, child_s = examples_production(torch, np, tmpdir, failed)
+    boot = examples_bootstrap(torch, np, coords10k, forces10k, tmpdir, failed)
+    cv, cv_launches, cv_s = examples_cv_feat(torch, np, tmpdir, failed)
+    if failed:
+        fail("phase 15: " + "; ".join(failed))
+    reports, max_err = example_kernel_shapes(torch, np, prod, boot, cv)
+    launches = {
+        "example torch_gauss.py": 0,
+        "example torch_production_fit.py (warm-up, fit, one per 512-frame chunk)":
+            prod_launches,
+        **{f"example torch_bootstrap.py, {run} (one per window)": n
+           for run, (_, n, _) in boot.items()},
+        "example torch_cv_feat.py (one per fold of each featurizer, one refit)":
+            cv_launches,
+    }
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 15 (example twins) {phase_s:.1f} s: gauss {gauss_s:.1f} s, production_fit "
+        f"{prod_s:.1f} s (a fresh process {child_s:.1f} s), bootstrap "
+        f"{', '.join(f'{run} {s:.1f} s' for run, (_, _, s) in boot.items())}, cv_feat "
+        f"{cv_s:.1f} s ({smi})")
+    return launches, reports, max_err, phase_s
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warmup-child"]:
         return warmup_child(*sys.argv[2:4])
@@ -3922,6 +4383,9 @@ def main() -> int:
             torch, np, coords, forces, cmap, groups, spec, problem64, cv_table, sweep,
             stream64, tmpdir, smi,
         )
+        example_launches, example_times, example_err, _ = phase_examples(
+            torch, np, coords, forces, smi, tmpdir
+        )
     del sweep
     log(f"generic path {generic_s['device']:.3f} s (device backend), "
         f"{generic_s['host']:.3f} s (host backend) at {GENERIC_FRAMES} frames; "
@@ -3954,7 +4418,7 @@ def main() -> int:
             "replaces": "aggforce_tpu/ops/pallas_gram.py:36",
             "launches": (
                 launches + cv_launches + grid_launches + batch_launches + stream_launches
-                + mesh_total("site_grams")
+                + mesh_total("site_grams") + sum(example_launches.values())
             ),
             "launches_by_path": {
                 "config #3 fit (project_forces)": launches,
@@ -3966,12 +4430,14 @@ def main() -> int:
                 "generic featurizer path (qp_feat_linear_map, allow_fused=False)": 0,
                 "streamed linear fit (qp_linear_map_streamed)": 0,
                 **mesh_paths("site_grams"),
+                **example_launches,
             },
-            "max_abs_err": max(max_err, stream_err, shard_times["max_abs_err"]),
+            "max_abs_err": max(max_err, stream_err, shard_times["max_abs_err"], example_err),
             **times,
             "at_fold_shape": fold_times,
             "at_stream_chunk_shape": stream_times,
             "at_mesh_shard_shape": shard_times,
+            "at_example_shapes": example_times,
         },
         {
             "name": "site_grams_tiled",
@@ -3986,6 +4452,7 @@ def main() -> int:
                 "generic featurizer path (qp_feat_linear_map, allow_fused=False)": 0,
                 "streamed linear fit (qp_linear_map_streamed)": 0,
                 **mesh_paths("site_grams_tiled"),
+                **{path: 0 for path in example_launches},
             },
             "max_abs_err": tiled_err,
             **tiled_times,

@@ -260,6 +260,56 @@ def test_pdblite_copy_matches_jax(tmp_path):
     assert got["constraint_groups"] == expect["constraint_groups"]
 
 
+def test_reference_waterdimer_copy_matches_jax(tmp_path):
+    from aggforce_torch.utils.synth import reference_waterdimer
+
+    from aggforce_tpu.utils.synth import reference_waterdimer as jax_waterdimer
+
+    assert reference_waterdimer(str(tmp_path / "absent.npz")) is None
+    assert jax_waterdimer(str(tmp_path / "absent.npz")) is None
+    rng = np.random.default_rng(4)
+    path = str(tmp_path / "dimer.npz")
+    np.savez(path, coords=rng.normal(size=(7, 6, 3)), Fs=rng.normal(size=(7, 6, 3)))
+    got, expect = reference_waterdimer(path), jax_waterdimer(path)
+    assert got.keys() == expect.keys() == {"coords", "forces"}
+    for key in got:
+        np.testing.assert_array_equal(got[key], expect[key])
+
+
+def test_example_system(tmp_path):
+    """The examples' standalone system is bench.py:290-307's (the fixture
+    of chip_smoke.py's configs #1-#3 from the same seeds); with a PDB it is
+    that PDB's CLN025-style fixture and C-alpha map; a missing PDB raises."""
+    from aggforce_torch.utils.pdblite import ca_map_from_pdb
+    from aggforce_torch.utils.synth import (
+        example_system,
+        synthesize_protein_fixture,
+        synthesize_trajectory,
+    )
+
+    fix, cmap, label = example_system(12, seed=2024)
+    assert label == "standalone (bench.py:290-307)"
+    base = np.random.default_rng(0).normal(scale=0.5, size=(175, 3))
+    groups = [frozenset((i, i + 1)) for i in range(0, 60, 2)]
+    coords, forces = synthesize_trajectory(base, groups, 12, seed=2024)
+    np.testing.assert_array_equal(fix["coords"], coords)
+    np.testing.assert_array_equal(fix["forces"], forces)
+    assert fix["constraint_groups"] == groups and float(fix["kbt"]) == 0.6955215
+    np.testing.assert_array_equal(
+        cmap.standard_matrix,
+        pt.LinearMap([[i] for i in range(0, 175, 18)], n_fg_sites=175).standard_matrix,
+    )
+
+    path = tmp_path / "tiny.pdb"
+    path.write_text(_PDB)
+    fix, cmap, label = example_system(10, seed=3, pdb=str(path))
+    expect = synthesize_protein_fixture(str(path), 10, seed=3)
+    np.testing.assert_array_equal(fix["coords"], expect["coords"])
+    assert label == f"pdb {path}" and cmap.n_cg_sites == len(ca_map_from_pdb(str(path)))
+    with pytest.raises(FileNotFoundError, match="missing topology fixture"):
+        example_system(10, seed=3, pdb=str(tmp_path / "absent.pdb"))
+
+
 def test_device_synthesis_structure():
     """The device twin's random stream differs from numpy's, so it is held
     to the construction: rigid groups, zero-sum constraint forces (with

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, no JAX package, GPU by default."""
 
+import os
 import re
 import subprocess
 import sys
@@ -43,17 +44,44 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+TWINS = sorted((REPO_ROOT / "examples").glob("torch_*.py"))
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"] + TWINS,
     ids=lambda p: str(p.relative_to(REPO_ROOT)),
 )
 def test_sources_do_not_import_jax(path):
     text = path.read_text()
     assert not IMPORT_RE.search(text)
-    if path.is_relative_to(PORT):
-        # the package names its JAX counterparts in prose, never by package
+    if path.is_relative_to(PORT) or path in TWINS:
+        # the port names its JAX counterparts in prose, never by package
         assert "aggforce_tpu" not in text
+
+
+def test_twins_run_without_jax():
+    """Two of the example twins run end to end (on the CPU, tiny) and
+    leave neither JAX nor the JAX package in ``sys.modules``; the other
+    twins' imports are in ``test_sources_do_not_import_jax``."""
+    code = (
+        "import importlib.util, sys\n"
+        "for name, argv in (('torch_gauss', ['--frames', '40']),\n"
+        "                   ('torch_bootstrap', ['--n-maps', '2', '--window', '2'])):\n"
+        "    spec = importlib.util.spec_from_file_location(name, f'examples/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    mod.main(['--device', 'cpu', *argv])\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'aggforce_tpu') "
+        "or m.startswith(('jax.', 'aggforce_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
 
 
 def _fixture():
