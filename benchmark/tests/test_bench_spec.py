@@ -1,0 +1,64 @@
+"""BENCHMARK.json against the benchmark's files: every name is found."""
+
+import json
+import re
+
+import pytest
+
+from benchmark import harness
+
+BENCH = harness.load_json(harness.ROOT / "BENCHMARK.json")
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+CELLS = [w["name"] for w in BENCH["workloads"]]
+
+
+def test_keys_and_names():
+    assert set(BENCH) == {
+        "command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer",
+    }
+    assert BENCH["paths"] == ["benchmark"]
+    assert 1 <= BENCH["run_seconds"] <= 51
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        names = [x["name"] for x in BENCH[group]]
+        assert len(names) == len(set(names))
+        assert all(NAME.match(n) for n in names)
+    for m in BENCH["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+    assert any(m["name"] == "setup_s" for m in BENCH["end_to_end"])
+    assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("trace", [False, True])
+def test_cell_found_by_name(cell, trace):
+    c = harness.load_cell(cell, trace)
+    assert c.config["name"] == cell.split(".")[0]
+    assert (harness.BENCH_DIR / "entries" / f"{c.traffic['entry']}.py").exists()
+    assert c.traffic["check"] in ("featurized", "linear", "linear_detect")
+    assert c.metrics, "every cell reports metrics in both kinds of run"
+    for m in c.metrics:
+        mod = harness.load_module(harness.BENCH_DIR / "metrics" / f"{m['name']}.py")
+        assert callable(mod.read)
+    assert c.limits, f"no limits file for {cell}"
+    assert c.chips == 1
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(cell):
+    e2e = {m["name"] for m in harness.load_cell(cell, False).metrics}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    per_layer = harness.load_cell(cell, True).metrics
+    assert per_layer and all(m["moves"] in e2e for m in per_layer)
+
+
+def test_configs_keep_the_catalogued_sizes():
+    for c in BENCH["configs"]:
+        cfg = harness.load_json(harness.ROOT / c["file"])
+        assert cfg["reduced"] == c["reduced"] == []
+        from benchmark import systems
+
+        shapes = systems.shapes(systems.build_system(cfg), cfg)
+        derived = cfg["derived"]
+        assert (shapes["G"], shapes["S"], shapes["K_exp"], shapes["R"]) == (
+            derived["groups"], derived["sites"], derived["k_exp"], derived["reduced_columns"],
+        )
