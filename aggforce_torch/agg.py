@@ -33,6 +33,7 @@ from .constraints import Constraints, guess_pairwise_constraints
 from .map import LinearMap, TMap
 from .qp import qp_linear_map
 from .trajectory import Trajectory
+from .utils.prof import span
 
 PROJECT_FORCES_CNSTR_AUTO: Final = "auto"
 
@@ -47,6 +48,7 @@ RESIDUAL_KNAME: Final = "residual"
 CONSTRAINTS_KNAME: Final = "constraints"
 
 
+@span("aggforce.entry")
 def project_forces(
     coords,
     forces,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.prof import span
 from .hints import Constraints
 
 # byte budget for the live (chunk, N, N) distance block when streaming the
@@ -193,6 +194,7 @@ def _centered(x, centroid, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x) - centroid, device=dev).to(torch.float32)
 
 
+@span("aggforce.detect")
 def guess_pairwise_constraints(
     xyz,
     cross_xyz=None,

@@ -13,6 +13,7 @@ import torch
 
 from ..ops.torchcore import trjdot
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.prof import span
 from .core import LinearMap
 
 _NAN_MESSAGE = (
@@ -43,6 +44,7 @@ def _checked_trjdot(
     return trjdot(points, factor), torch.zeros((), dtype=torch.bool)
 
 
+@span("aggforce.apply")
 def fused_separable_apply(coord_map, force_map, coords, forces):
     """SeperableTMap application for two TLinearMaps with one verdict fetch.
 
@@ -119,6 +121,7 @@ class TLinearMap(LinearMap):
         result, bad = _checked_trjdot(factor, points, bool(self.handle_nans))
         return (result.cpu().numpy() if numpy_input else result), bad
 
+    @span("aggforce.apply")
     def __call__(self, points):
         """Apply the map; input library and dtype preserved."""
         result, bad = self._apply(points)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.device import full_fp32
+from ..utils.prof import span
 
 # Refinement sweeps stop once the equilibrated constraint violation falls
 # below this (comfortably below the 1e-4 escalation tolerance, at the f32
@@ -209,6 +210,7 @@ def _shared_schur_stage(
     return x.reshape(f, s, n, -1), resid.reshape(f, s)
 
 
+@span("aggforce.solve")
 @full_fp32()
 def batched_eqp_solve_shared(
     P: torch.Tensor,
@@ -253,6 +255,7 @@ def batched_eqp_solve_shared(
     return x
 
 
+@span("aggforce.solve")
 @full_fp32()
 def batched_eqp_solve_auglag(
     P: torch.Tensor,
@@ -297,6 +300,7 @@ def batched_eqp_solve_auglag(
     return x
 
 
+@span("aggforce.solve")
 def eqp_solve_auglag(
     P: torch.Tensor,
     A: torch.Tensor,
@@ -321,6 +325,7 @@ def eqp_solve_auglag(
     return out[0]
 
 
+@span("aggforce.solve")
 @full_fp32()
 def batched_eqp_solve(
     P: torch.Tensor,

@@ -42,6 +42,7 @@ from ..ops.gram import site_grams
 from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
+from ..utils.prof import span
 from .fusedfeat import (
     _constraint_system,
     _fit_constants,
@@ -381,6 +382,7 @@ def _featurized_cv_problem(
     return grams, rows, b_all, folds, samples
 
 
+@span("aggforce.entry")
 @full_fp32()
 def fused_gb_cv(
     coords,

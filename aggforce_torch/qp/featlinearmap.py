@@ -45,6 +45,7 @@ from ..ops.eqp import eqp_solve_auglag, eqp_solve_host
 from ..parallel.mesh import agree_seed, as_frame_mesh
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
+from ..utils.prof import span
 from .qplinear import DEVICE_REFINE_ITERS, SolverOptions, _host_array, _solver_opts
 
 KNAME_FEATS: Final = "feats"
@@ -230,6 +231,7 @@ def _device_site_solve(
     return params
 
 
+@span("aggforce.entry")
 def qp_feat_linear_map(
     traj: Trajectory,
     coord_map: LinearMap,

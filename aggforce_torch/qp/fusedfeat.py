@@ -62,6 +62,7 @@ from ..parallel.mesh import (
 )
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
+from ..utils.prof import span
 from .featlinearmap import id_feat
 
 # the shared-factor KKT solve's defaults (ridge delta, refinement sweeps)
@@ -148,6 +149,7 @@ def _constraint_rows(
     return rows.transpose(0, 1).reshape(s_dim, tc * c_dim, -1)
 
 
+@span("aggforce.constraints")
 @full_fp32()
 def _assemble_constraint_system(
     constr_coords: torch.Tensor,
@@ -214,6 +216,7 @@ def _constraint_system(
     )
 
 
+@span("aggforce.gram")
 def _site_gram(
     coords: torch.Tensor,  # (T, N, 3)
     forces: torch.Tensor,
@@ -487,6 +490,7 @@ class FusedGBMap(CLAMap):
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    @span("aggforce.apply")
     def __call__(self, points, copoints):
         """Fused, frame-chunked application (type-preserving).
 
@@ -630,6 +634,7 @@ def _gram_function(
     raise ValueError(f"use_kernel must be 'auto', True or False, not {use_kernel!r}")
 
 
+@span("aggforce.escalate")
 def _host_solve(gram, a_rows, b):
     """Float64 LAPACK solves of a stack of sites' QPs, the escalation of
     unconverged float32 solves. Returns (coefs (n, K_exp) float32, each
@@ -768,6 +773,7 @@ def _frames_at(x, frame_idx: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
+@span("aggforce.entry")
 @full_fp32()
 def fused_gb_linear_map(
     traj: Trajectory,
@@ -840,6 +846,7 @@ def fused_gb_linear_map(
     )
 
 
+@span("aggforce.entry")
 @full_fp32()
 def fused_gb_linear_map_blocked(
     traj: Trajectory,
@@ -1187,12 +1194,13 @@ def _window_indices(seeds, t: int, n_cf: int, window: int) -> np.ndarray:
                 f"fused_gb_linear_map_batch: tail of {n_tail} seeds padded to "
                 f"the {window}-fit window ({window - n_tail} discarded solves; "
                 f"align len(seeds) to flush_every to avoid)",
-                stacklevel=4,  # past the batch fit and its full_fp32 scope
+                stacklevel=5,  # past the batch fit and its span and full_fp32 scopes
             )
         idx += [idx[-1]] * (window - n_tail)
     return np.stack(idx).reshape(-1, window, n_cf)
 
 
+@span("aggforce.entry")
 @full_fp32()
 def fused_gb_linear_map_batch(
     traj: Trajectory,

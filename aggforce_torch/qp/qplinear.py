@@ -30,6 +30,7 @@ from ..ops.eqp import eqp_solve_auglag, eqp_solve_host
 from ..parallel.mesh import as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import ForcesTrajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
+from ..utils.prof import span
 
 # frames per Gram block of the device fit: the live (3 * block, N) force
 # rows and their (3 * block, R) reduced design stay a few hundred MB at
@@ -103,6 +104,7 @@ def _reduced(rows: torch.Tensor, labels: torch.Tensor, r: int) -> torch.Tensor:
     return rows.new_zeros((rows.shape[0], r)).index_add_(1, labels, rows)
 
 
+@span("aggforce.gram")
 def _linear_gram(
     forces: torch.Tensor,
     labels: torch.Tensor,
@@ -154,6 +156,7 @@ def _device_linear_fit(
     return _solve_linear_gram(gram, labels, cmap_mat, l2_regularization, r)
 
 
+@span("aggforce.solve")
 @full_fp32()
 def _solve_linear_gram(
     gram: torch.Tensor,
@@ -217,6 +220,7 @@ def _host_linear_fit_from_gram(
     return (con_mat @ x).T
 
 
+@span("aggforce.entry")
 def qp_linear_map(
     traj: ForcesTrajectory,
     coord_map: LinearMap,
@@ -310,12 +314,13 @@ def qp_linear_map(
             # eps_abs termination + polish in the reference): escalate to
             # the float64 LAPACK twin
             fit_routes["escalated"] += 1
-            fmap_mat = _host_linear_fit(
-                _host_array(forces),
-                con_mat(),
-                coord_map.standard_matrix,
-                l2_regularization,
-            ).astype(fmap_mat.dtype)
+            with span("aggforce.escalate"):
+                fmap_mat = _host_linear_fit(
+                    _host_array(forces),
+                    con_mat(),
+                    coord_map.standard_matrix,
+                    l2_regularization,
+                ).astype(fmap_mat.dtype)
     if isinstance(forces, torch.Tensor):
         # tensor input -> maps applied as torch code on that device, so
         # downstream application never round-trips trajectory-sized arrays

@@ -7,23 +7,42 @@ Counterpart of the JAX package's ``utils/prof.py``:
     so queued device work is inside the phase that enqueued it;
   * :func:`device_peaks`: the card's name and its peak allocated and
     reserved memory (the caching allocator's counters);
-  * :func:`trace`: a ``torch.profiler`` trace of the card's activity
-    (the host's too on a machine without a card), written as a Chrome trace;
-  * :func:`log_compile_time`: the first call of a function (kernel builds,
-    lazy CUDA module loading, cuBLAS/cuSOLVER handles) reported apart from
-    the steady calls.
+  * :func:`trace`: a ``torch.profiler`` trace of the host's activity and,
+    where there is a card, the card's, written as a Chrome trace;
+  * :func:`span`: a named layer of the program (one of :data:`LAYER_SPANS`)
+    on the profiler's timeline, so each kernel, copy and host sync can be
+    tied to the layer that issued it; free when no profiler runs.
 """
 
 import contextlib
 import os
 import tempfile
 import time
-from functools import wraps
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["PhaseTimer", "device_peaks", "log_compile_time", "trace"]
+__all__ = ["LAYER_SPANS", "PhaseTimer", "device_peaks", "span", "trace"]
+
+# The program's layers, each entered once where its work happens:
+#   entry        a public fit's set-up, uploads, fetch of the map, packaging
+#   detect       constraints.finder.guess_pairwise_constraints
+#   gram         the featurized Gram (fusedfeat._site_gram: kernel 1, kernel
+#                2 or the plain twin) and the linear Gram (qplinear._linear_gram)
+#   constraints  the featurized constraint rows (fusedfeat._assemble_constraint_system)
+#   solve        the ops.eqp device solvers and qplinear._solve_linear_gram
+#   escalate     the float64 host solves of unconverged fits
+#   apply        FusedGBMap and TLinearMap applied to frames
+LAYER_SPANS = (
+    "aggforce.entry",
+    "aggforce.detect",
+    "aggforce.gram",
+    "aggforce.constraints",
+    "aggforce.solve",
+    "aggforce.escalate",
+    "aggforce.apply",
+)
 
 
 def _device_fence() -> None:
@@ -87,42 +106,47 @@ def device_peaks(device=None) -> Optional[Tuple[str, int, int]]:
     )
 
 
+def span(name: str):
+    """Mark the block (or, as a decorator, each call) as the program layer
+    ``name`` of :data:`LAYER_SPANS`.
+
+    Inside a ``torch.profiler`` session this is
+    ``torch.profiler.record_function(name)``: the span lies on the same
+    clock as the kernels, copies and CUDA runtime calls the profiler
+    records, and each launch inside it belongs to the innermost span. With
+    no profiler active it reads one flag and never enters
+    ``record_function``, which costs microseconds a span even then.
+    """
+    if name not in LAYER_SPANS:
+        raise ValueError(f"{name!r} is not one of {LAYER_SPANS}")
+    return _layer(name)
+
+
+@contextlib.contextmanager
+def _layer(name: str):
+    if not _autograd_profiler._is_profiler_enabled:
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
+
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None):
     """Profile the block with ``torch.profiler`` and write a Chrome trace,
     ``trace.json``, into ``logdir`` (a new temporary directory when None);
-    yields the directory. The card's activity is traced where there is a
-    card, the host's otherwise (host tracing of long runs is slow to
-    aggregate)."""
+    yields the directory. The host's activity is traced, with the
+    program's :func:`span` layers over the operators and CUDA calls they
+    issued, and the card's too where there is one."""
     from torch.profiler import ProfilerActivity, profile
 
     target = logdir or tempfile.mkdtemp(prefix="aggforce_trace_")
     os.makedirs(target, exist_ok=True)
-    activity = (
-        ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU
-    )
-    with profile(activities=[activity]) as prof:
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
         yield target
         _device_fence()
     prof.export_chrome_trace(os.path.join(target, "trace.json"))
 
-
-def log_compile_time(fn: Callable, sink: Optional[Callable[[str], Any]] = None):
-    """Wrap a callable, reporting its first call (kernel builds, lazy CUDA
-    initialization) apart from its steady calls; each call waits for the
-    card before its time is taken."""
-    state = {"calls": 0}
-    emit = sink or print
-
-    @wraps(fn)
-    def wrapped(*args, **kwargs):
-        start = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _device_fence()
-        elapsed = time.perf_counter() - start
-        state["calls"] += 1
-        kind = "first call (incl. builds and CUDA set-up)" if state["calls"] == 1 else "call"
-        emit(f"[{getattr(fn, '__name__', 'fn')}] {kind}: {elapsed:.4f}s")
-        return out
-
-    return wrapped

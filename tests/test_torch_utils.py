@@ -18,7 +18,7 @@ import aggforce_torch as pt
 from aggforce_torch.qp.fusedfeat import GBFeatSpec, fused_gb_linear_map
 from aggforce_torch.utils import devcache
 from aggforce_torch.utils.debug import check_finite, debug_mode
-from aggforce_torch.utils.prof import PhaseTimer, device_peaks, log_compile_time, trace
+from aggforce_torch.utils.prof import PhaseTimer, device_peaks, trace
 from aggforce_torch.utils.warmup import (
     WarmupHandle,
     warm_featurized_batch,
@@ -63,18 +63,21 @@ def test_device_peaks_is_none_without_a_card():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The trace holds the host's activity with the program's layer spans
+    over the operators they ran (here a map's apply)."""
+    fmap = pt.TLinearMap([[0], [1, 2]], n_fg_sites=3, device="cpu")
     with trace(str(tmp_path / "tr")) as logdir:
-        torch.ones(64).cumsum(0)
+        fmap(torch.ones(4, 3, 3))
     path = Path(logdir) / "trace.json"
     assert path.exists()
-    assert "traceEvents" in json.loads(path.read_text())
-
-
-def test_log_compile_time_separates_the_first_call():
-    lines = []
-    wrapped = log_compile_time(lambda x: x + 1, sink=lines.append)
-    assert wrapped(1) == 2 and wrapped(2) == 3
-    assert "first call" in lines[0] and "first call" not in lines[1]
+    events = json.loads(path.read_text())["traceEvents"]
+    (apply,) = [e for e in events if e.get("name") == "aggforce.apply"]
+    assert apply["cat"] == "user_annotation"
+    t0, t1 = apply["ts"], apply["ts"] + apply["dur"]
+    assert any(
+        e.get("cat") == "cpu_op" and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1
+        for e in events
+    )
 
 
 # --- debug --------------------------------------------------------------------
