@@ -22,6 +22,17 @@ _NAN_MESSAGE = (
 )
 
 
+def _nan_sites(points: torch.Tensor) -> torch.Tensor:
+    """(n_sites,) bool: the sites that hold a NaN in any frame or dimension.
+
+    One read of the frames and no full-size temporary: a max over the frames
+    propagates NaN, and +/-inf is not NaN.
+    """
+    if points.shape[0] == 0:
+        return torch.zeros(points.shape[1], dtype=torch.bool, device=points.device)
+    return torch.isnan(torch.amax(points, dim=0)).any(dim=-1)
+
+
 def _checked_trjdot(
     factor: torch.Tensor, points: torch.Tensor, nan_handling: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -31,15 +42,13 @@ def _checked_trjdot(
     iff it touches a nonzero map weight; map/jaxlinearmap.py:14-39) but the
     verdict is computed directly — ``any(isnan(points) & participating)`` —
     instead of comparing two differently-filled products, whose reduction
-    order noise would flag phantom NaNs at large contraction sizes.
+    order noise would flag phantom NaNs at large contraction sizes. Only
+    NaN is filled: +/-inf propagates as in the numpy LinearMap path.
     """
     if nan_handling:
-        # only NaN is filled: +/-inf must propagate as in the numpy
-        # LinearMap path (nan_to_num would turn it into large finite values)
-        nan = torch.isnan(points)
-        result = trjdot(torch.where(nan, 0.0, points), factor)
+        result = trjdot(points, factor, fill_nan=True)
         participating = torch.any(factor != 0.0, dim=0)  # (n_fg,)
-        bad = torch.any(nan & participating[None, :, None])
+        bad = torch.any(_nan_sites(points) & participating)
         return result, bad
     return trjdot(points, factor), torch.zeros((), dtype=torch.bool)
 

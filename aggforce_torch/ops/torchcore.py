@@ -10,25 +10,74 @@ Behavior parity targets: reference jaxutil.py:11-59 (trjdot),
 jaxutil.py:105-183 (distances with ``square`` option).
 """
 
+import math
 from typing import Callable, Union
 
 import torch
 
 from ..utils.device import full_fp32
 
+# byte budget for the frames laid out for one rank-2 product; the chunk of
+# frames adapts to the frame size, so the copy stays bounded at any
+# trajectory length while each chunk is still one large GEMM
+_LAYOUT_BYTES = 192 * 1024 * 1024
+
+
+def _chunk_frames(n_frames: int, frame_bytes: int) -> int:
+    """Frames per chunk: ``n_frames`` split into equal chunks under the
+    budget; the last chunk holds the ragged tail."""
+    n_chunks = max(1, -(-n_frames * frame_bytes // _LAYOUT_BYTES))
+    return max(1, -(-n_frames // n_chunks))
+
 
 @full_fp32()
-def trjdot(points: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+def trjdot(
+    points: torch.Tensor, factor: torch.Tensor, fill_nan: bool = False
+) -> torch.Tensor:
     """Map (n_frames, n_sites, n_dim) points with a (n_out, n_sites) matrix.
+
+    A rank-2 ``factor`` maps every frame with one 2-D product per chunk of
+    frames: the chunk is laid out once as (frames * n_dim, n_sites), then
+    ``laid @ factor.T`` runs as one GEMM, and the (frames * n_dim, n_out)
+    product is copied into the contiguous (n_frames, n_out, n_dim) result.
+    ``fill_nan`` (rank 2 only) sets NaN to 0 in the laid-out chunk; +/-inf
+    is kept.
 
     A rank-3 ``factor`` of shape (n_frames, n_out, n_sites) applies a distinct
     matrix per frame (one batched GEMM).
     """
-    if factor.ndim == 2:
-        return torch.matmul(factor[None, :, :], points)
-    if factor.ndim == 3:
+    if factor.ndim == 3 and not fill_nan:
         return torch.matmul(factor, points)
-    raise ValueError(f"factor must be rank 2 or 3, got shape {tuple(factor.shape)}.")
+    if factor.ndim != 2:
+        raise ValueError(
+            "factor must be rank 2, or rank 3 without fill_nan; got shape "
+            f"{tuple(factor.shape)}."
+        )
+    # one layout for every factor: cuBLAS picks its kernel, and so its
+    # rounding, by the operands' layouts
+    factor = factor.contiguous()
+    n_frames, n_sites, n_dim = points.shape
+    out = torch.empty(
+        (n_frames, factor.shape[0], n_dim), dtype=points.dtype, device=points.device
+    )
+    chunk = _chunk_frames(n_frames, n_sites * n_dim * points.element_size())
+    flat = torch.empty(
+        min(chunk, n_frames) * n_dim * n_sites,
+        dtype=points.dtype,
+        device=points.device,
+    )
+    for start in range(0, n_frames, chunk):
+        part = points[start : start + chunk].transpose(1, 2)
+        t = part.shape[0]
+        laid = flat[: t * n_dim * n_sites].view(t, n_dim, n_sites)
+        laid.copy_(part)
+        if fill_nan:
+            # in place on the copy: autograd and torch.func refuse an
+            # ``out=`` fill of a tracked input
+            laid.nan_to_num_(nan=0.0, posinf=math.inf, neginf=-math.inf)
+        prod = torch.matmul(laid.view(t * n_dim, n_sites), factor.T)
+        out[start : start + t] = prod.view(t, n_dim, -1).transpose(1, 2)
+    return out
 
 
 def distances(

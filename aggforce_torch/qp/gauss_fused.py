@@ -81,7 +81,7 @@ def _staged_gauss_program(
     # RATMap: premap the real block's forces (NaN->0, as the handle_nans
     # map of the piecewise path), keep the noise block
     real_f = full_f[:, :n]
-    mf_real = trjdot(torch.where(torch.isnan(real_f), 0.0, real_f), fmap1)
+    mf_real = trjdot(real_f, fmap1, fill_nan=True)
     pm_f = torch.cat([mf_real, full_f[:, n:]], dim=1)  # (T, 2S, 3)
 
     # the noise-site fit: no constraints, the slice map [0 | I]

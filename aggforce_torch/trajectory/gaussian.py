@@ -305,24 +305,17 @@ def _mat_fused_apply(
     postfill: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Augment, map, and compute both participation-masked NaN verdicts
-    (the semantics of ``map.torchlinear._checked_trjdot``) without a host
-    sync. ``fill_c``/``fill_f`` mirror each map's ``handle_nans``: when
-    False, NaNs propagate into the mapped output."""
+    (``map.torchlinear._checked_trjdot``) without a host sync.
+    ``fill_c``/``fill_f`` mirror each map's ``handle_nans``: when False,
+    NaNs propagate into the mapped output."""
+    from ..map.torchlinear import _checked_trjdot  # local import avoids a circular dependency
+
     full_c, full_f = _fused_augment_math(
         eps, coords, forces, var, kbt, pmat, postmat, pfill, postfill
     )
-    verdicts = []
-    mapped = []
-    for full, mat, fill in ((full_c, cmat, fill_c), (full_f, fmat, fill_f)):
-        if fill:
-            nan = torch.isnan(full)
-            part = torch.any(mat != 0.0, dim=0)
-            verdicts.append(torch.any(nan & part[None, :, None]))
-            mapped.append(trjdot(torch.where(nan, 0.0, full), mat))
-        else:
-            verdicts.append(torch.zeros((), dtype=torch.bool, device=full.device))
-            mapped.append(trjdot(full, mat))
-    return mapped[0], mapped[1], verdicts[0], verdicts[1]
+    mapped_c, bad_c = _checked_trjdot(cmat, full_c, fill_c)
+    mapped_f, bad_f = _checked_trjdot(fmat, full_f, fill_f)
+    return mapped_c, mapped_f, bad_c, bad_f
 
 
 class TCondNormal(Augmenter):

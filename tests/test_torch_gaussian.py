@@ -148,6 +148,41 @@ def test_log_gradients_equal_jax(case):
         np.testing.assert_allclose(g, np.asarray(r), atol=LGRAD_ATOL, rtol=0)
 
 
+# atom 2 carries no weight
+ZERO_COL = np.array([[1.0, 0.0, 0.0], [0.0, 0.5, 0.0]])
+
+
+@pytest.mark.parametrize("cov", ["scalar", "matrix"])
+def test_checking_premap_log_gradients_equal_jax(cov):
+    """A NaN-checking ``TLinearMap.flat_call`` premap (the VJP path) gives
+    JAX's log-gradients with a NaN on a zero-weight atom, and raises with a
+    NaN on a weighted atom. JAX's checking map cannot raise inside its
+    jitted log-gradient, so the reference premap is JAX's bypassing map:
+    the same NaN->0 fill, without the raise."""
+    rng = np.random.default_rng(8)
+    c = 0.3 if cov == "scalar" else _cov(6)
+    source = rng.normal(size=(12, 3, 3)).astype(np.float32)
+    jaug = JCondNormal(
+        cov=c, premap=JLinearMap(ZERO_COL, bypass_nan_check=True).flat_call, seed=0
+    )
+    paug = TCondNormal(
+        cov=c, premap=TLinearMap(ZERO_COL, device="cpu").flat_call, seed=0, device="cpu"
+    )
+    paug.sample(source)  # sets the deferred covariance
+    jaug.sample(source)
+    generated = rng.normal(size=(12, 2, 3)).astype(np.float32)
+    source[2, 2, 1] = np.nan
+    got = paug.log_gradient(source, generated)
+    ref = jaug.log_gradient(source, generated)
+    for g, r in zip(got, ref):
+        assert isinstance(g, np.ndarray) and g.dtype == np.float32
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, np.asarray(r), atol=LGRAD_ATOL, rtol=0)
+    source[2, 0, 1] = np.nan
+    with pytest.raises(ValueError, match="NaN handling"):
+        paug.log_gradient(source, generated)
+
+
 def test_log_gradient_requires_cov():
     with pytest.raises(ValueError, match="without cov"):
         TCondNormal(cov=0.1, device="cpu").log_gradient(np.zeros((2, 3, 3)), np.zeros((2, 3, 3)))
