@@ -11,6 +11,10 @@ reference solved and applied in TF32 in the program's place, on the same
 fits. One JSON line per seed and a last line with the largest program
 reading and the smallest control reading of each number. The benchmark's
 runs never call this.
+
+A cell on several chips takes only ``--control-seeds`` here (the control
+needs no ranks, one card); its program readings are the checks that its
+runs print (``run.py``, one rank per card).
 """
 
 import argparse
@@ -39,6 +43,8 @@ def main(argv=None) -> int:
     from benchmark import harness
 
     cell = harness.load_cell(args.workload, False)
+    if cell.chips > 1 and args.seeds:
+        parser.error(f"{args.workload} runs on {cell.chips} ranks: its program readings come from run.py")
     device = torch.device(args.device)
     summary = {"program": {}, "control": {}}
     for seed in sorted(set(args.seeds) | set(args.control_seeds)):

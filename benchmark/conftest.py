@@ -29,6 +29,10 @@ TINY = {
         {"n_atoms": 40, "bonded_pairs": {"start": 0, "stop": 10, "step": 2}, "cg_stride": 8},
         {"pool_frames": 1500, "frames_per_fit": 300, "warm_frames": 300, "traced_fits": 3},
     ),
+    "solvated_1500.feat_blocked.mesh4": (
+        {"n_atoms": 60, "bonded_pairs": {"start": 0, "stop": 20, "step": 2}, "cg_stride": 7},
+        {"pool_frames": 1500, "frames_per_fit": 300, "warm_frames": 100, "traced_fits": 2, "check_sites": 4},
+    ),
     "solvated_1500.linear": (
         {"n_atoms": 60, "bonded_pairs": {"start": 0, "stop": 20, "step": 2}, "cg_stride": 7},
         {"pool_frames": 1500, "frames_per_fit": 300, "warm_frames": 300, "traced_fits": 3},

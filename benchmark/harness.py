@@ -19,9 +19,15 @@ A run is a closed loop: fits run back to back on contiguous windows of a
 trajectory pool made on the device from the seed, each with its own
 constraint-frame generator; a fit that starts inside the window runs to its
 end and counts.
+
+A cell on several chips runs this on every rank (``benchmark/ranks.py``),
+each with its own pool from the seed, the same offsets and streams, and a
+``Link`` to the others: rank 0 decides when the window ends, and a fit's
+time on rank 0 ends once every rank's fit has returned.
 """
 
 import gc
+import hashlib
 import importlib.util
 import json
 import os
@@ -144,9 +150,14 @@ class Reservoir:
 class Session:
     """A cell's system, pool and entry for one seed, and its fits in order:
     fit ``i`` takes the window at the ``i``-th offset drawn from the seed
-    and the constraint-frame generator of ``(seed, i)``."""
+    and the constraint-frame generator of ``(seed, i)``.
 
-    def __init__(self, cell: Cell, seed: int, device: torch.device):
+    With ``link`` (a rank of a cell on several chips) every rank's pool
+    must have rank 0's checksum, and the entry's ``prepare`` also gets the
+    rank, the world size and the init URL of the program's process group.
+    Without ``program`` no entry is prepared (the control alone)."""
+
+    def __init__(self, cell: Cell, seed: int, device: torch.device, link=None, program: bool = True):
         self.cell, self.seed, self.device = cell, seed, device
         self.system = systems.build_system(cell.config)
         self.shapes = systems.shapes(self.system, cell.config)
@@ -154,8 +165,13 @@ class Session:
         self.pool = systems.make_pool(
             self.system, int(cell.traffic["pool_frames"]), seed, device
         )
-        self.entry = _entry(cell.traffic)
-        self.state = self.entry.prepare(self.system, cell.config, device)
+        self.entry = self.state = None
+        if link is not None:
+            link.agree("pool", pool_checksum(self.pool))
+        if program:
+            self.entry = _entry(cell.traffic)
+            ranks = () if link is None else (link.rank, link.world, link.init_url)
+            self.state = self.entry.prepare(self.system, cell.config, device, *ranks)
         self.offsets = _stream(seed, _OFFSETS)
         self.n_off = int(cell.traffic["pool_frames"]) - self.t_fit + 1
 
@@ -190,16 +206,26 @@ def run_cell(
     trace: bool,
     device: torch.device,
     log: Callable[[str], None],
-) -> Dict:
+    link=None,
+) -> Optional[Dict]:
     """One run; returns the result (``correct``, ``attempted``, ``failed``,
-    ``metrics``, ``device``, traced ``breakdown``, and last ``checks``)."""
+    ``metrics``, ``device``, traced ``breakdown``, and last ``checks``).
+
+    With ``link`` this is one rank of a cell on several chips: only rank 0
+    traces, reads the metrics and returns the result; every rank judges its
+    share of the checked sites after the window, and the others post their
+    readings and return None. A failed fit there ends the run, since the
+    other ranks would wait for it in a collective."""
     from . import tracing
 
-    ses = Session(cell, seed, device)
+    lead = link is None or link.rank == 0
+    ses = Session(cell, seed, device, link)
     ses.warm()
     # what set-up made is never garbage: keep the collector from rescanning it
     gc.collect()
     gc.freeze()
+    if link is not None:
+        link.barrier("ready")
     run = Run(cell=cell, shapes=ses.shapes, frames_per_fit=ses.t_fit)
     sample = Reservoir(int(cell.traffic["check_fits"]), seed)
     failed = 0
@@ -211,19 +237,27 @@ def run_cell(
         try:
             item = ses.fit(i)
         except (RuntimeError, ValueError) as err:
+            if link is not None:
+                raise
             failed += 1
             log(f"fit {i} failed: {err!r}")
             return
+        if link is not None:
+            link.fit_done(i)
         run.fit_seconds.append(time.perf_counter() - start)
         run.escalated.append(int(item["escalated_sites"]))
         sample.offer(item)
+
+    def more(i: int, t0: float) -> bool:
+        go = time.perf_counter() - t0 < seconds and (max_fits is None or i < max_fits)
+        return go if link is None else link.go(i, go)
 
     def window() -> int:
         i = 0
         with torch.profiler.record_function(tracing.WINDOW_SPAN):
             run.setup_s = process_age()
             t0 = time.perf_counter()
-            while time.perf_counter() - t0 < seconds and (max_fits is None or i < max_fits):
+            while more(i, t0):
                 one_fit(i)
                 i += 1
             _sync(device)
@@ -231,7 +265,7 @@ def run_cell(
         return i
 
     routes0 = _routes()
-    if trace:
+    if trace and lead:
         with tracing.profiled() as holder:
             attempted = window()
         run.trace = holder.trace
@@ -253,14 +287,22 @@ def run_cell(
 
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     metrics = {}
-    for m in cell.metrics:
+    for m in cell.metrics if lead else ():
         value = load_module(BENCH_DIR / "metrics" / f"{m['name']}.py").read(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    digest = None if link is None else outputs_digest(sample.items)
     ses.release()
     t_check = time.perf_counter()
-    checks = check_outputs(ses, sample.items, "program")
+    share = None if link is None else (link.rank, link.world)
+    checks = check_outputs(ses, sample.items, "program", share=share)
     log(f"check: {len(sample.items)} fits in {time.perf_counter() - t_check:.3f} s")
+    if link is not None:
+        mine = {"peak": int(peak), "digest": digest, "checks": {k: c["value"] for k, c in checks.items()}}
+        if not lead:
+            link.post(mine)
+            return None
+        peak, checks = _merge_ranks(cell, mine, link.collect(), log)
     correct = (
         attempted > 0
         and failed == 0
@@ -270,7 +312,7 @@ def run_cell(
     dev_info = {
         "platform": "gpu" if device.type == "cuda" else device.type,
         "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "count": 1,
+        "count": 1 if link is None else link.world,
         "memory_peak_bytes": int(peak),
     }
     result = {
@@ -288,12 +330,43 @@ def run_cell(
     return result
 
 
+def pool_checksum(pool) -> str:
+    """Float64 sums of a pool's coordinates and forces, as text."""
+    return repr([float(x.sum(dtype=torch.float64)) for x in pool])
+
+
+def outputs_digest(items: List[Dict]) -> str:
+    """A digest of the bytes of the sampled fits' coefficients and mapped
+    forces, to compare one rank's outputs with another's exactly."""
+    h = hashlib.sha256()
+    for item in items:
+        h.update(np.ascontiguousarray(np.stack([np.asarray(c) for c in item["coefs"]])).tobytes())
+        h.update(item["mapped"].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _merge_ranks(cell: Cell, mine: Dict, others: Dict[int, Dict], log) -> tuple:
+    """Rank 0's peak memory and checks from every rank's readings: the
+    largest peak, each number's largest reading over the ranks' shares of
+    the sites, and ``ranks_disagree``, the ranks whose sampled outputs are
+    not byte for byte rank 0's."""
+    every = {0: mine, **others}
+    log("memory peak by rank: " + ", ".join(f"{r}: {o['peak']}" for r, o in sorted(every.items())))
+    worst: Dict[str, float] = {}
+    for o in every.values():
+        for name, value in o["checks"].items():
+            worst[name] = max(worst.get(name, -np.inf), float(value))
+    worst["ranks_disagree"] = float(sum(o["digest"] != mine["digest"] for o in others.values()))
+    checks = {name: {"value": v, "limit": cell.limits.get(name)} for name, v in worst.items()}
+    return max(o["peak"] for o in every.values()), checks
+
+
 def calibration_readings(
     cell: Cell, seed: int, fits: int, device: torch.device, program: bool, control: bool,
 ) -> Dict[str, Dict[str, float]]:
     """The check's numbers, largest over ``fits`` fits, of the program's
     outputs and of the control in the program's place."""
-    ses = Session(cell, seed, device)
+    ses = Session(cell, seed, device, program=program)
     out = {}
     if program:
         ses.warm()
@@ -316,9 +389,10 @@ def _routes() -> Dict[str, int]:
     return dict(mod.fit_routes) if mod is not None else {}
 
 
-def fit_inputs(ses: Session, item: Dict):
+def fit_inputs(ses: Session, item: Dict, share=None):
     """The frames, constraint frames and checked sites of a sampled fit,
-    worked out again from the seed."""
+    worked out again from the seed; with ``share`` = (rank, world) only
+    every world-th of the checked sites, from the rank-th on."""
     cfg, traffic = ses.cell.config, ses.cell.traffic
     off, t_fit = item["offset"], ses.t_fit
     coords, forces = ses.pool[0][off : off + t_fit], ses.pool[1][off : off + t_fit]
@@ -331,15 +405,19 @@ def fit_inputs(ses: Session, item: Dict):
         if 0 < k < n_sites
         else list(range(n_sites))
     )
+    if share is not None:
+        sites = sites[share[0] :: share[1]]
     return coords, forces, frames, sites
 
 
-def judge(ses: Session, item: Dict, judged: str, precision: str = "float64") -> Dict[str, float]:
+def judge(
+    ses: Session, item: Dict, judged: str, precision: str = "float64", share=None
+) -> Dict[str, float]:
     """The check's numbers for one fit: of the program's outputs in ``item``
     (``judged="program"``), or of the reference solved and applied in
     ``precision`` in the program's place (``judged="reference"``; the
     control with ``"tf32"``)."""
-    coords, forces, frames, sites = fit_inputs(ses, item)
+    coords, forces, frames, sites = fit_inputs(ses, item, share)
     cfg, system = ses.cell.config, ses.system
     kind = ses.cell.traffic["check"]
     prog = judged == "program"
@@ -367,12 +445,14 @@ def judge(ses: Session, item: Dict, judged: str, precision: str = "float64") -> 
     raise ValueError(f"unknown check {kind!r}")
 
 
-def check_outputs(ses: Session, items: List[Dict], judged: str, precision: str = "float64") -> Dict[str, Dict]:
-    """Each number compared, the largest over the fits ``items``, beside
-    its limit."""
+def check_outputs(
+    ses: Session, items: List[Dict], judged: str, precision: str = "float64", share=None
+) -> Dict[str, Dict]:
+    """Each number compared, the largest over the fits ``items`` (and over
+    this rank's ``share`` of the checked sites), beside its limit."""
     worst: Dict[str, float] = {}
     for item in items:
-        for name, value in judge(ses, item, judged, precision).items():
+        for name, value in judge(ses, item, judged, precision, share).items():
             worst[name] = max(worst.get(name, -np.inf), value)
     return {
         name: {"value": value, "limit": ses.cell.limits.get(name)} for name, value in worst.items()

@@ -72,6 +72,11 @@ def test_a_run_loads_no_jax():
         "import copy\n"
         "for name in conftest.TINY:\n"
         "    cell = harness.load_cell(name, False)\n"
+        "    if cell.chips > 1:\n"
+        "        # its entry's imports here; its runs, one process a rank, in\n"
+        "        # test_bench_ranks.py, where every rank looks for JAX itself\n"
+        "        harness._entry(cell.traffic); import aggforce_torch.parallel\n"
+        "        continue\n"
         "    s, t = conftest.TINY[name]\n"
         "    cfg = copy.deepcopy(cell.config); cfg['system'].update(s)\n"
         "    cell = harness.Cell(name, cfg, dict(cell.traffic, **t), cell.limits, cell.metrics, 1)\n"

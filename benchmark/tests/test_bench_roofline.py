@@ -89,7 +89,7 @@ def test_breakdown_names_gaps_by_span_and_host_operator():
 
 def test_fit_mfu_counts_the_gram_over_the_window():
     shapes = _shapes("cln025_ca")
-    cell = type("C", (), {"traffic": {"check": "featurized"}})()
+    cell = type("C", (), {"traffic": {"check": "featurized"}, "chips": 1})()
     trace = tracing.Trace(window=(0.0, 2.0), device_ops=[("k", 0.0, 1.0)])
     run = harness.Run(cell=cell, shapes=shapes, frames_per_fit=10_000, fit_seconds=[0.1] * 20, trace=trace)
     # 20 fits x 4.04e11 flops at 495 TFLOP/s is 16.3 ms of a 2 s window
@@ -102,3 +102,52 @@ def test_readers_return_nothing_without_a_trace():
                  "linear_gram.roofline_pct", "device.idle_pct", "escalated_sites_per_fit",
                  "fit_mfu"):
         assert _metric(name).read(run) is None
+
+
+def test_on_four_chips_the_work_is_shared_by_the_chips():
+    """kernel 2's roofline sets an average rank's share of the fit's work
+    (a fourth of the flops and Gram entries, every frame read) against
+    rank 0's kernel time; ``fit_mfu`` the whole fits' work against four
+    chips' peak over the window."""
+    shapes = _shapes("solvated_1500")
+    t = 100_000
+    trace = tracing.Trace(
+        window=(0.0, 20.0),
+        device_ops=[("void gram_tc::site_grams_product<(anonymous namespace)::PairStore>(x)", 1.0, 7.0)],
+    )
+    one = type("C", (), {"traffic": {"check": "featurized"}, "chips": 1})()
+    four = type("C", (), {"traffic": {"check": "featurized"}, "chips": 4})()
+    runs = {c.chips: harness.Run(cell=c, shapes=shapes, frames_per_fit=t, fit_seconds=[9.0] * 2, trace=trace)
+            for c in (one, four)}
+    k2 = _metric("site_grams_tiled.roofline_pct")
+    work = 3.0 * t * 66 * 9000 * 9001
+    assert k2.read(runs[4]) == pytest.approx(100 * 2 * (work / 4) / 495e12 / 6.0)
+    assert k2.read(runs[1]) == pytest.approx(100 * 2 * work / 495e12 / 6.0)
+    assert k2.nbytes(shapes, t, 4) == pytest.approx(4.0 * (6 * t * 1500 + 66 * 9000 * 9001 / 8))
+    mfu = _metric("fit_mfu")
+    assert mfu.read(runs[4]) == pytest.approx(100 * 2 * work / (4 * 495e12) / 20.0)
+    assert mfu.read(runs[4]) == pytest.approx(mfu.read(runs[1]) / 4)
+
+
+def test_nccl_time_is_the_median_fit():
+    """Three traced fits: NCCL kernels go to the fit whose ``bench.fit``
+    span started last before them; one fit that waited long for a slow
+    rank does not set the reading, and other kernels are not counted."""
+    trace = tracing.Trace(
+        window=(0.0, 30.0),
+        device_ops=[
+            ("ncclDevKernel_AllGather_RING_LL(ncclDevComm*, unsigned long, ncclWork*)", 8.0, 8.020),
+            ("ncclDevKernel_AllGather_RING_LL(ncclDevComm*, unsigned long, ncclWork*)", 9.0, 9.002),
+            ("void site_grams_build(Operands)", 10.5, 15.0),
+            ("ncclDevKernel_AllGather_RING_LL(ncclDevComm*, unsigned long, ncclWork*)", 18.0, 18.400),
+            ("ncclDevKernel_Broadcast_RING_LL(ncclDevComm*, unsigned long, ncclWork*)", 20.5, 20.518),
+        ],
+        spans=[("bench.fit", 0.1, 8.5), ("bench.gather", 8.9, 9.1),
+               ("bench.fit", 10.0, 18.5), ("bench.fit", 20.0, 29.0)],
+    )
+    run = harness.Run(cell=None, shapes={}, frames_per_fit=1, fit_seconds=[9.0] * 3, trace=trace)
+    # per fit 22, 400 and 18 ms; the mean would read 146.7
+    assert _metric("nccl.device_ms_per_fit").read(run) == pytest.approx(22.0)
+    quiet = tracing.Trace(window=(0.0, 30.0), device_ops=[("k", 1.0, 2.0)], spans=trace.spans)
+    none = harness.Run(cell=None, shapes={}, frames_per_fit=1, fit_seconds=[9.0] * 3, trace=quiet)
+    assert _metric("nccl.device_ms_per_fit").read(none) is None

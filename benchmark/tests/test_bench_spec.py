@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's files: every name is found."""
 
+import inspect
 import json
 import re
 
@@ -40,7 +41,17 @@ def test_cell_found_by_name(cell, trace):
         mod = harness.load_module(harness.BENCH_DIR / "metrics" / f"{m['name']}.py")
         assert callable(mod.read)
     assert c.limits, f"no limits file for {cell}"
-    assert c.chips == 1
+    assert c.chips in (1, 4)
+    if c.chips > 1:
+        entry = harness.load_module(harness.BENCH_DIR / "entries" / f"{c.traffic['entry']}.py")
+        params = list(inspect.signature(entry.prepare).parameters)
+        assert params[3:6] == ["rank", "world", "init_url"], params
+        assert "ranks_disagree" in c.limits and c.limits["ranks_disagree"] == 0
+
+
+def test_four_chip_cells_are_at_most_a_quarter():
+    fours = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(CELLS) // 4), fours
 
 
 @pytest.mark.parametrize("cell", CELLS)
