@@ -10,6 +10,8 @@ cell's limits is a file of its own, found by name:
 * ``benchmark/traffic/<traffic>.json``: the entry, pool and window sizes,
   the check and how many fits it samples;
 * ``benchmark/entries/<entry>.py``: the call into the program;
+* ``benchmark/checks/<check>.py``: ``judge``, the numbers the check compares
+  for one fit, and ``work``, the fit's Gram flops;
 * ``benchmark/metrics/<metric>.py``: ``read(run)``, the metric's value or
   None where the run has nothing to read;
 * ``benchmark/limits/<cell>.json``: the limit of each number the check
@@ -34,13 +36,12 @@ import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import systems
-from .reference import detect, featurized, linear
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
@@ -65,9 +66,20 @@ def load_module(path: Path):
     return mod
 
 
+def load_check(name: str):
+    """The check ``benchmark/checks/<name>.py``; a missing file is refused
+    at once, by its path."""
+    path = BENCH_DIR / "checks" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"check {name!r}: no file {path.relative_to(ROOT)}")
+    return load_module(path)
+
+
 @dataclass
 class Cell:
-    """A workload of ``BENCHMARK.json`` with everything found by its names."""
+    """A workload of ``BENCHMARK.json`` with everything found by its names;
+    ``check``, the module ``traffic["check"]`` names, is loaded as the cell
+    is made."""
 
     name: str
     config: Dict
@@ -75,6 +87,10 @@ class Cell:
     limits: Dict[str, float]
     metrics: List[Dict]  # the metric entries of BENCHMARK.json this run reports
     chips: int
+    check: Any = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.check = load_check(self.traffic["check"])
 
 
 def load_cell(name: str, trace: bool) -> Cell:
@@ -410,49 +426,17 @@ def fit_inputs(ses: Session, item: Dict, share=None):
     return coords, forces, frames, sites
 
 
-def judge(
-    ses: Session, item: Dict, judged: str, precision: str = "float64", share=None
-) -> Dict[str, float]:
-    """The check's numbers for one fit: of the program's outputs in ``item``
-    (``judged="program"``), or of the reference solved and applied in
-    ``precision`` in the program's place (``judged="reference"``; the
-    control with ``"tf32"``)."""
-    coords, forces, frames, sites = fit_inputs(ses, item, share)
-    cfg, system = ses.cell.config, ses.system
-    kind = ses.cell.traffic["check"]
-    prog = judged == "program"
-    if kind == "featurized":
-        coefs = featurized.coefs_from_program(item["coefs"], coords.device) if prog else None
-        return featurized.check_fit(
-            system, cfg, coords, forces, frames, sites, coefs,
-            item["mapped"] if prog else None, precision,
-        )
-    cmap = system.cmap_matrix()
-    l2 = float(cfg.get("linear_l2_regularization", 0.0))
-    fmap, mapped = (item["fmap"], item["mapped"]) if prog else (None, None)
-    if kind == "linear":
-        return linear.check_fit(forces, cmap, system.pairs, l2, fmap, mapped, precision)
-    if kind == "linear_detect":
-        ref_pairs = detect.detect(coords, "float64")
-        found = (
-            {tuple(sorted(p)) for p in item["constraints"]}
-            if prog
-            else detect.detect(coords, precision)
-        )
-        out = {"mismatched_pairs": float(len(found ^ ref_pairs))}
-        out.update(linear.check_fit(forces, cmap, sorted(ref_pairs), l2, fmap, mapped, precision))
-        return out
-    raise ValueError(f"unknown check {kind!r}")
-
-
 def check_outputs(
     ses: Session, items: List[Dict], judged: str, precision: str = "float64", share=None
 ) -> Dict[str, Dict]:
     """Each number compared, the largest over the fits ``items`` (and over
-    this rank's ``share`` of the checked sites), beside its limit."""
+    this rank's ``share`` of the checked sites), beside its limit: of the
+    program's outputs (``judged="program"``), or of the reference solved and
+    applied in ``precision`` in the program's place (``judged="reference"``;
+    the control with ``"tf32"``), as the cell's check judges them."""
     worst: Dict[str, float] = {}
     for item in items:
-        for name, value in judge(ses, item, judged, precision, share).items():
+        for name, value in ses.cell.check.judge(ses, item, judged, precision, share).items():
             worst[name] = max(worst.get(name, -np.inf), value)
     return {
         name: {"value": value, "limit": ses.cell.limits.get(name)} for name, value in worst.items()

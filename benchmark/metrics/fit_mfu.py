@@ -1,6 +1,7 @@
-"""The whole fit's share of the chips' peak: the fits' Gram work (the
+"""The whole fit's share of the chips' peak: the fits' Gram work, as the
+cell's check counts it (``work`` of ``benchmark/checks/<check>.py``: the
 featurized Gram's 3T S K_exp (K_exp + 1) flops, or the linear Gram's
-3T R (R + 1), each unique entry once) at the TF32 peak of every chip the
+3T R (R + 1), each unique entry once), at the TF32 peak of every chip the
 cell runs on, over the traced window's wall time (rank 0's, which ends with
 the slowest rank's last fit). Everything else a fit does (constraint rows,
 solve, apply, detection, the exchange between chips) counts as time but not
@@ -11,16 +12,8 @@ still moves."""
 from benchmark.peaks import TF32_FLOPS
 
 
-def flops(shapes, t, kind):
-    if kind == "featurized":
-        k = shapes["K_exp"]
-        return 3.0 * t * shapes["S"] * k * (k + 1)
-    r = shapes["R"]
-    return 3.0 * t * r * (r + 1)
-
-
 def read(run):
     if run.trace is None or not run.fit_seconds or run.trace.window_s <= 0:
         return None
-    work = len(run.fit_seconds) * flops(run.shapes, run.frames_per_fit, run.cell.traffic["check"])
+    work = len(run.fit_seconds) * run.cell.check.work(run.shapes, run.frames_per_fit)
     return 100.0 * work / (TF32_FLOPS * run.cell.chips) / run.trace.window_s

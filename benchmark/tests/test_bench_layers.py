@@ -77,7 +77,7 @@ def _doc(program=True):
 
 
 def _run(trace, fits=2):
-    cell = type("C", (), {"traffic": {"check": "featurized"}, "chips": 1})()
+    cell = type("C", (), {"check": harness.load_check("featurized"), "chips": 1})()
     shapes = {"K_exp": 1160, "S": 10, "N": 175, "R": 1125}
     return harness.Run(cell=cell, shapes=shapes, frames_per_fit=10_000,
                        fit_seconds=[0.01] * fits, trace=trace)

@@ -89,7 +89,7 @@ def test_breakdown_names_gaps_by_span_and_host_operator():
 
 def test_fit_mfu_counts_the_gram_over_the_window():
     shapes = _shapes("cln025_ca")
-    cell = type("C", (), {"traffic": {"check": "featurized"}, "chips": 1})()
+    cell = type("C", (), {"check": harness.load_check("featurized"), "chips": 1})()
     trace = tracing.Trace(window=(0.0, 2.0), device_ops=[("k", 0.0, 1.0)])
     run = harness.Run(cell=cell, shapes=shapes, frames_per_fit=10_000, fit_seconds=[0.1] * 20, trace=trace)
     # 20 fits x 4.04e11 flops at 495 TFLOP/s is 16.3 ms of a 2 s window
@@ -115,8 +115,8 @@ def test_on_four_chips_the_work_is_shared_by_the_chips():
         window=(0.0, 20.0),
         device_ops=[("void gram_tc::site_grams_product<(anonymous namespace)::PairStore>(x)", 1.0, 7.0)],
     )
-    one = type("C", (), {"traffic": {"check": "featurized"}, "chips": 1})()
-    four = type("C", (), {"traffic": {"check": "featurized"}, "chips": 4})()
+    one = type("C", (), {"check": harness.load_check("featurized"), "chips": 1})()
+    four = type("C", (), {"check": harness.load_check("featurized"), "chips": 4})()
     runs = {c.chips: harness.Run(cell=c, shapes=shapes, frames_per_fit=t, fit_seconds=[9.0] * 2, trace=trace)
             for c in (one, four)}
     k2 = _metric("site_grams_tiled.roofline_pct")

@@ -3,6 +3,8 @@
 import inspect
 import json
 import re
+import subprocess
+import sys
 
 import pytest
 
@@ -35,7 +37,8 @@ def test_cell_found_by_name(cell, trace):
     c = harness.load_cell(cell, trace)
     assert c.config["name"] == cell.split(".")[0]
     assert (harness.BENCH_DIR / "entries" / f"{c.traffic['entry']}.py").exists()
-    assert c.traffic["check"] in ("featurized", "linear", "linear_detect")
+    assert (harness.BENCH_DIR / "checks" / f"{c.traffic['check']}.py").is_file()
+    assert callable(c.check.judge) and callable(c.check.work)
     assert c.metrics, "every cell reports metrics in both kinds of run"
     for m in c.metrics:
         mod = harness.load_module(harness.BENCH_DIR / "metrics" / f"{m['name']}.py")
@@ -47,6 +50,52 @@ def test_cell_found_by_name(cell, trace):
         params = list(inspect.signature(entry.prepare).parameters)
         assert params[3:6] == ["rank", "world", "init_url"], params
         assert "ranks_disagree" in c.limits and c.limits["ranks_disagree"] == 0
+
+
+NO_CHECK = """
+import json, sys
+sys.path.insert(0, {root!r})
+import torch
+from benchmark import harness, run, systems
+
+asked = []
+read = harness.load_json
+
+
+def load_json(path):
+    out = read(path)
+    return dict(out, check="no_such_check") if path.parent.name == "traffic" else out
+
+
+def note(what):
+    def called(*args, **kwargs):
+        asked.append(what)
+        raise AssertionError(what)
+    return called
+
+
+harness.load_json = load_json
+systems.build_system = note("set-up")
+torch.cuda.is_available = note("cuda")
+torch.cuda.device_count = note("cuda")
+try:
+    run.main(["--workload", {cell!r}, "--seed", "1", "--seconds", "1"])
+except FileNotFoundError as err:
+    print(json.dumps({{"error": str(err), "asked": asked}}))
+"""
+
+
+def test_a_check_with_no_file_is_refused_when_the_cell_loads():
+    """A traffic whose check has no module fails in ``load_cell``, naming
+    the missing file, before the run asks for a card or builds anything."""
+    code = NO_CHECK.format(root=str(harness.ROOT), cell=CELLS[0])
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=harness.ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "benchmark/checks/no_such_check.py" in out["error"]
+    assert out["asked"] == []
 
 
 def test_four_chip_cells_are_at_most_a_quarter():
