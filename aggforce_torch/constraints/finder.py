@@ -7,19 +7,24 @@ constrained; self pairs masked; the cross-system variant returns ordered
 tuples).
 
 The O(T N^2) fluctuation statistic runs on the device: first and second
-moments of the pairwise distance fluctuations accumulate over frame chunks,
+moments of the pairwise distance fluctuations accumulate over the frames,
 and only the boolean mask of constrained pairs is fetched to build the
-frozenset API the rest of the package expects. Distances are summed from
-elementwise coordinate differences in full fp32, never through a matmul
-that TF32 could round (its 10-bit mantissa puts the error on a ~1.5 nm
-distance above the 1e-3 threshold).
+frozenset API the rest of the package expects. On the CUDA card one
+hand-written kernel (``csrc/pair_moments.cu``, :func:`pair_moments`) takes
+all frames in one pass; on the CPU :func:`_distance_sd` streams frame
+chunks. Distances are summed from elementwise coordinate differences in
+full fp32, never through a matmul that TF32 could round (its 10-bit
+mantissa puts the error on a ~1.5 nm distance above the 1e-3 threshold).
 """
 
-from typing import Union
+import ctypes
+import functools
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..utils.debug import check_finite
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.prof import span
 from .hints import Constraints
@@ -86,6 +91,103 @@ def _distance_sd(xyz: torch.Tensor, other: torch.Tensor, chunk: int) -> torch.Te
     return torch.sqrt(var)
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_moments_lib():
+    """The library built from ``csrc/pair_moments.cu``, its two C entries
+    typed: ``aggforce_pair_moments_slices`` (the frame split F, which sizes
+    the workspace) and ``aggforce_pair_moments`` (both launches)."""
+    from ..ops import _build
+
+    lib = _build.load("pair_moments.cu")
+    lib.aggforce_pair_moments_slices.argtypes = [ctypes.c_int] * 4
+    lib.aggforce_pair_moments_slices.restype = ctypes.c_int
+    fn = lib.aggforce_pair_moments
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_double] + [
+        ctypes.c_void_p
+    ] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_pair_inputs(xyz, other) -> None:
+    """Raise unless the coordinates meet the kernel's contract."""
+    for name, x in (("xyz", xyz), ("other", other)):
+        if x is None:
+            continue
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.ndim != 3 or x.shape[-1] != 3 or x.shape[0] < 1 or x.shape[1] < 1:
+            raise ValueError(
+                f"{name} must be (T >= 1, n >= 1, 3), got {tuple(x.shape)}"
+            )
+    if other is not None:
+        if other.shape[0] != xyz.shape[0]:
+            raise ValueError(f"other has {other.shape[0]} frames, xyz {xyz.shape[0]}")
+        if other.device != xyz.device:
+            raise ValueError(f"other is on {other.device}, xyz on {xyz.device}")
+
+
+def pair_moments(
+    xyz: torch.Tensor, other: Optional[torch.Tensor] = None, threshold: float = 1e-3
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distance sd of every site pair over all frames, and its mask.
+
+    Returns ``(sd, hits)``, both (n_b, n_a): ``sd`` float64, of the distance
+    between site i of ``other`` and site j of ``xyz`` (of ``xyz`` with itself
+    when ``other`` is None), a strided view of the kernel's workspace; and
+    ``hits = sd < threshold``, false on the diagonal within one system.
+    The hand-written kernel
+    ``csrc/pair_moments.cu``, built on first use; CUDA tensors only
+    (float32, contiguous, (T, n, 3), equal frame counts), anything else
+    raises. Each call adds one to ``pair_moments.launches``. Same
+    arithmetic as :func:`_distance_sd` with the moments summed in fp64.
+    """
+    _check_pair_inputs(xyz, other)
+    dev = xyz.device
+    if dev.type != "cuda":
+        raise ValueError(f"pair_moments runs on a CUDA card, not {dev}")
+    within = other is None
+    src = xyz if within else other
+    t, n_a, n_b = xyz.shape[0], xyz.shape[1], src.shape[1]
+    sizes = f"T={t}, n_a={n_a}, n_b={n_b}"
+    lib = _pair_moments_lib()
+    with torch.cuda.device(dev):
+        n_slices = lib.aggforce_pair_moments_slices(t, n_a, n_b, int(within))
+        if n_slices == 0:
+            raise ValueError(f"aggforce_pair_moments refused {sizes}")
+        if n_slices < 0:
+            raise RuntimeError(
+                f"aggforce_pair_moments_slices failed (cudaError {-n_slices})"
+            )
+        # (s1, s2) of every pair and frame slice; the finalize launch leaves
+        # each pair's sd in place of slice 0's s1
+        part = torch.empty((n_slices, n_b, n_a, 2), dtype=torch.float64, device=dev)
+        hits = torch.empty((n_b, n_a), dtype=torch.bool, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.aggforce_pair_moments(
+            xyz.data_ptr(), src.data_ptr(), t, n_a, n_b, int(within), n_slices,
+            float(threshold), part.data_ptr(), hits.data_ptr(), stream,
+        )
+    if err < 0:
+        raise ValueError(f"aggforce_pair_moments refused {sizes}, slices={n_slices}")
+    if err > 0:
+        raise RuntimeError(
+            f"aggforce_pair_moments kernel launch failed (cudaError {err})"
+        )
+    pair_moments.launches += 1
+    sd = part[0, :, :, 0]
+    # the kernel bypasses torch's dispatch, so debug mode checks it here
+    check_finite("pair_moments", sd)
+    return sd, hits
+
+
+pair_moments.launches = 0
+
+
 def _constraint_mask(
     xyz: torch.Tensor,
     other: torch.Tensor,
@@ -95,10 +197,18 @@ def _constraint_mask(
 ) -> np.ndarray:
     """Boolean constrained-pair mask, computed on the device.
 
-    Thresholding (and, within one system, self-pair exclusion) happens
-    before the fetch so the host transfer is a 1-byte-per-pair mask instead
-    of the float32 sd matrix.
+    CUDA tensors go to :func:`pair_moments` (the kernel), laid out
+    contiguously first: centring keeps the strides of a strided input.
+    Others take the plain :func:`_distance_sd` in ``chunk``-frame slices.
+    Thresholding (and, within one system, self-pair exclusion) happens before
+    the fetch so the host transfer is a 1-byte-per-pair mask instead of the
+    sd matrix.
     """
+    if xyz.device.type == "cuda":
+        _, hits = pair_moments(
+            xyz.contiguous(), other.contiguous() if cross else None, threshold
+        )
+        return hits.cpu().numpy()
     hits = _distance_sd(xyz, other, chunk) < threshold
     if not cross:
         hits.fill_diagonal_(False)

@@ -13,7 +13,13 @@ fails:
 3. each kernel against its plain torch version on the card, at the main
    path's shapes (kernel 1 also at the config-#4 fold shape, 2,000 frames)
    and at edge shapes, and the config-#3 Gram against a float64 sum of the
-   same rows;
+   same rows; then (3b) constraint detection's kernel (csrc/pair_moments.cu)
+   against the plain ``_distance_sd`` on the same centred card tensors, at
+   config #1's 10,000 frames x 175 atoms (within one system and against 40
+   shifted atoms) and at 256 frames of 1,500 and 3,000 atoms: every pair's
+   sd^2 within a derived fp32-summation limit (a plain path that leaves out
+   a frame must not be), the mask thresholded and holding the system's
+   pairs, the same bits twice; its and the plain path's times and bound;
 4. the main path: ``aggforce_torch.project_forces`` with the featurized
    method on a 10,000-frame synthetic trajectory at the full width of
    config #3 (175 atoms, 30 constraint pairs, 10 cg sites, n_basis=7):
@@ -40,7 +46,8 @@ fails:
    (b) ``project_forces_grid_cv(fast=True)``: a (featurizer x l2) grid must
    equal ``fused_gb_cv_grid``'s table and launch kernel 1 five times per
    featurizer; the linear grid at config #1 must lie within 1e-4 of float64
-   scores and launch no kernel;
+   scores and launch no Gram kernel; each grid's detection launches the
+   detection kernel once;
    (c) ``fused_gb_linear_map_batch`` at config #3, 4 windows of 64 seeds: one
    kernel-1 launch per window, every fit finite, the first and last seed
    of each window within 1e-4 of its float64 optimum; ms per fit and
@@ -54,9 +61,10 @@ fails:
    block must lie near a float64 witness solved on the card (the planted
    fault must not), and its peak device memory must stay within 24 GiB;
    then the fit's times and profile, and the tiled kernel's times;
-7. the linear path, which runs no hand-written kernel (both launch counts
-   must read 0 after each of its runs, and ``qplinear.fit_routes`` must
-   show one device fit and no escalation per fit):
+7. the linear path, which runs no Gram kernel (both launch counts must
+   read 0 after each of its runs, detection's kernel must have launched
+   once per detection, and ``qplinear.fit_routes`` must show one device fit
+   and no escalation per fit):
    (a) config #1: ``aggforce_torch.project_forces`` with every default
    (``qp_linear_map``, ``constrained_inds="auto"``) on phase 4's fixture on
    the card. The detected pairs must be the 30 synthesized, |M F^T - I|
@@ -93,8 +101,10 @@ fails:
    optimized maps correlate above 0.9 and differ below 0.1 (a map with
    M F^T = 1.5 I must fail); (6) with TF32 on, a fit reads the same bits;
    (7) no Gram kernel launches. Then times, a profiled fit and peak memory;
-9. one JSON line listing every kernel, printed after phase 15; the last
-   line is the result;
+9. one JSON line listing every kernel, printed after phase 15 (detection's
+   launches counted on the paths of phases 5b, 7, 8, 10 and 12, not on the
+   mesh and examples);
+   the last line is the result;
 10. the generic featurizer path at config #3 width on 2,000 frames (cut
    from 10,000: it holds each site's (T, N, K_exp) features on the host, as
    the reference does): ``qp_feat_linear_map(allow_fused=False)`` with the
@@ -311,6 +321,18 @@ MESH_WORLD = 2
 MESH_GRAM_LIMIT = 1e-5
 MESH_BATCH_WINDOWS = 2
 MESH_CHILD_TIMEOUT_S = 600
+# constraint detection's kernel (csrc/pair_moments.cu): the flops its bound
+# counts per (frame, pair) item (three differences, three products or FMAs,
+# a square root, the fluctuation and two moment sums), the bytes of its
+# outputs per pair (the fp64 sd and the mask), its threshold, and how often
+# it and the plain _distance_sd are run per timing
+DETECT_FLOPS_PER_ITEM = 10
+DETECT_OUT_BYTES = 9
+DETECT_THRESHOLD = 1e-3
+DETECT_REPS, DETECT_PLAIN_REPS = 50, 5
+# detection's launches of csrc/pair_moments.cu per driven path, filled by
+# read_counts and phase_cv_grids for the kernels line
+DETECT_LAUNCHES = {}
 
 
 def log(msg: str) -> None:
@@ -594,6 +616,163 @@ def kernel_report(name, ms, stages, flops, n_bytes, library_ms, plain_ms):
     if stages is not None:
         report.update(build_ms=stages["build"], product_ms=stages["product"])
     return report
+
+
+def detection_inputs(torch, np, coords, groups):
+    """The detection kernel's cases: (label, xyz, other or None, the pairs
+    detection must find), each centred per frame on the card as
+    ``guess_pairwise_constraints`` centres it. Config #1's 10,000 frames x
+    175 atoms within one system and against a rigidly shifted copy of atoms
+    100-139 (each copy bound to its twin and to the twin's partners), the
+    featurized sweep geometry (1,500 atoms, 375 pairs) and the linear sweep
+    (3,000 atoms, 750 pairs) on 256 frames, as phase 7b detects."""
+    from aggforce_torch.constraints import finder
+    from aggforce_torch.utils.synth import synthesize_trajectory_device
+
+    def centred(xyz, other=None):
+        xyz = torch.as_tensor(xyz, device="cuda")
+        centroid = torch.mean(xyz, dim=1, keepdim=True)
+        x = finder._centered(xyz, centroid, xyz.device).contiguous()
+        if other is None:
+            return x, None
+        return x, finder._centered(other, centroid, xyz.device).contiguous()
+
+    def sweep_geometry(n):
+        base = np.random.default_rng(0).normal(scale=1.5, size=(n, 3))
+        pairs = [frozenset((i, i + 1)) for i in range(0, n // 2, 2)]
+        xyz, _ = synthesize_trajectory_device(
+            base, pairs, 256, seed=1, motion_scale=0.02, device="cuda"
+        )
+        return centred(xyz), set(pairs)
+
+    xyz = torch.as_tensor(coords, device="cuda")
+    shift = torch.tensor([0.3, 0.0, 0.0], dtype=xyz.dtype, device="cuda")
+    across = {
+        (k, j) for k in range(40) for j in range(xyz.shape[1])
+        if j == 100 + k or frozenset((100 + k, j)) in groups
+    }
+    cases = [
+        (f"config #1, T={xyz.shape[0]}, 175 sites", *centred(xyz), set(groups)),
+        (f"config #1 across, T={xyz.shape[0]}, 175 x 40 sites",
+         *centred(xyz, xyz[:, 100:140] + shift), across),
+    ]
+    for n in (SWEEP_ATOMS, LINEAR_SWEEP_ATOMS):
+        (x, other), pairs = sweep_geometry(n)
+        cases.append((f"sweep geometry, T=256, {n} sites", x, other, pairs))
+    return cases
+
+
+def detection_limit(torch, finder, x, src, chunk):
+    """Per pair, how far the kernel's sd^2 may lie from the plain path's.
+
+    Both take the same fp32 distances (up to one rounding of the sum of
+    squares, which the kernel takes with FMAs) and differ in how they add
+    the moments: the plain path in fp32 chunk sums of ``chunk`` frames
+    added chunk by chunk, the kernel in fp64. A chain of m fp32 additions
+    of terms of size up to s is off by at most m u s, so with the mean
+    square fluctuation ms = s2 / T each of s2 / T and mean^2 is off by at
+    most m u ms, m = chunk + ceil(T / chunk) + 2; the distances' rounding
+    adds 4 u dmax |delta| to each delta squared. Hence
+    |sd_k^2 - sd_p^2| <= 3 m u ms + 8 u dmax sqrt(ms).
+    """
+    t = x.shape[0]
+    d0 = finder._dists(x[:1], src[:1])[0]
+    ms = torch.zeros(d0.shape, dtype=torch.float64, device=x.device)
+    dmax = 0.0
+    for lo in range(0, t, chunk):
+        d = finder._dists(x[lo : lo + chunk], src[lo : lo + chunk])
+        dmax = max(dmax, float(d.max()))
+        delta = (d - d0).double()
+        ms += (delta * delta).sum(dim=0)
+    ms /= t
+    m = chunk + -(-t // chunk) + 2
+    return 3 * m * F32_EPS * ms + 8 * F32_EPS * dmax * ms.sqrt()
+
+
+def phase_detection(torch, np, coords, groups, smi):
+    """Constraint detection's kernel, ``finder.pair_moments``
+    (csrc/pair_moments.cu), against the plain ``_distance_sd`` on the same
+    card tensors at each case of ``detection_inputs``. Gates: every pair's
+    sd^2 within ``detection_limit`` of the plain path's (a plain path that
+    leaves out the last frame, the planted fault, must not be); the mask is
+    sd < threshold, self pairs cleared, and holds the case's pairs; a second
+    call gives the same bits. Then the kernel's and the plain path's device
+    times against the kernel's bound. Returns the kernels line's fields."""
+    from aggforce_torch.constraints import finder
+
+    t_phase = time.perf_counter()
+    lib = finder._pair_moments_lib()
+    reports = {}
+    for label, x, other, pairs in detection_inputs(torch, np, coords, groups):
+        within = other is None
+        src = x if within else other
+        t, n_a, n_b = x.shape[0], x.shape[1], src.shape[1]
+        chunk = finder._chunk_length(t, n_a, n_b)
+        with torch.cuda.device(x.device):
+            n_slices = lib.aggforce_pair_moments_slices(t, n_a, n_b, int(within))
+        sd_k, hits = finder.pair_moments(x, other, DETECT_THRESHOLD)
+        sd_again, hits_again = finder.pair_moments(x, other, DETECT_THRESHOLD)
+        limit = detection_limit(torch, finder, x, src, chunk)
+
+        def gap_of_limit(sd_p):
+            gap = (sd_k.square() - sd_p.double().square()).abs()
+            return float((gap / limit.clamp_min(1e-300)).max())
+
+        worst = gap_of_limit(finder._distance_sd(x, src, chunk))
+        fault = gap_of_limit(finder._distance_sd(x[:-1], src[:-1], chunk))
+        expect = sd_k < DETECT_THRESHOLD
+        if within:
+            expect.fill_diagonal_(False)
+        ii, jj = np.nonzero(hits.cpu().numpy())
+        found = (
+            {frozenset(p) for p in zip(ii.tolist(), jj.tolist())} if within
+            else set(zip(ii.tolist(), jj.tolist()))
+        )
+        bitwise = torch.equal(sd_k.view(torch.int64), sd_again.view(torch.int64)) and (
+            torch.equal(hits, hits_again)
+        )
+        log(f"detection kernel, {label} (F = {n_slices} frame slices): sd^2 off the "
+            f"plain path's by at most {worst:.3g} of its limit (must be <= 1), the "
+            f"planted fault (last frame left out) by {fault:.3g} (must exceed 1); "
+            f"{len(found)} pairs, equal to the {len(pairs)} expected: {found == pairs}; "
+            f"a second call the same bits: {bitwise}")
+        if not worst <= 1.0:
+            fail(f"detection kernel, {label}: sd off the plain path beyond its limit")
+        if not fault > 1.0:
+            fail(f"detection kernel, {label}: the sd gate does not reject the planted fault")
+        if not torch.equal(hits, expect) or found != pairs:
+            fail(f"detection kernel, {label}: the mask is not sd < threshold or misses pairs")
+        if not bitwise:
+            fail(f"detection kernel, {label}: two calls gave different bits")
+
+        def kernel():
+            return finder.pair_moments(x, other, DETECT_THRESHOLD)
+
+        warm_card(torch, kernel)
+        ms = cuda_ms(torch, kernel, DETECT_REPS)
+        plain_ms = cuda_ms(torch, lambda: finder._distance_sd(x, src, chunk), DETECT_PLAIN_REPS)
+        pairs_computed = n_a * (n_a - 1) // 2 if within else n_a * n_b
+        flops = DETECT_FLOPS_PER_ITEM * t * pairs_computed
+        n_bytes = 4 * 3 * t * (n_a if within else n_a + n_b) + DETECT_OUT_BYTES * n_a * n_b
+        flops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+        bound_ms = max(flops_ms, bytes_ms)
+        bound_by = "operations" if flops_ms >= bytes_ms else "bytes"
+        log(f"detection kernel, {label}: {ms:.4f} ms per call (both launches), plain "
+            f"_distance_sd {plain_ms:.3f} ms ({plain_ms / ms:.1f}x); bound {bound_ms:.4g} ms "
+            f"({bound_by}; {flops:.4g} FLOP at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32, "
+            f"{n_bytes:.4g} B at {PEAK_BYTES / 1e12:.2f} TB/s), {ms / bound_ms:.1f}x the "
+            f"bound ({smi})")
+        reports[label] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            slices=n_slices, max_gap_of_limit=worst,
+        )
+    log(f"phase 3b (detection kernel) {time.perf_counter() - t_phase:.1f} s")
+    cell, *rest = reports
+    return {
+        **reports[cell],
+        "max_gap_of_limit": max(r["max_gap_of_limit"] for r in reports.values()),
+        "at_shapes": {label: reports[label] for label in rest},
+    }
 
 
 def plain_fit(np, coords, forces, cmap, groups, featurizer, **kwargs):
@@ -1395,26 +1574,35 @@ def rel_rms(torch, got, ref):
 
 def reset_counts():
     """Every launch and route count to 0, just before a path is driven."""
+    from aggforce_torch.constraints.finder import pair_moments
     from aggforce_torch.ops.gram import site_grams, site_grams_tiled
     from aggforce_torch.qp.qplinear import fit_routes
 
-    site_grams.launches = site_grams_tiled.launches = 0
+    site_grams.launches = site_grams_tiled.launches = pair_moments.launches = 0
     fit_routes.clear()
 
 
-def read_counts(label):
+def read_counts(label, detections):
     """Log the counts a linear path left, and fail unless both Gram kernels'
-    launch counts read 0 (the linear path runs no hand-written kernel);
-    returns the fit routes it took."""
+    launch counts read 0 (the linear path runs no Gram kernel) and the
+    detection kernel's reads ``detections`` (one launch of
+    csrc/pair_moments.cu per detection on the card); record the latter
+    under ``label`` and return the fit routes the path took."""
+    from aggforce_torch.constraints.finder import pair_moments
     from aggforce_torch.ops.gram import site_grams, site_grams_tiled
     from aggforce_torch.qp.qplinear import fit_routes
 
     routes = dict(fit_routes)
     launched = site_grams.launches, site_grams_tiled.launches
+    DETECT_LAUNCHES[label] = pair_moments.launches
     log(f"{label}: fit routes {routes}; site_grams launches {launched[0]}, "
-        f"site_grams_tiled launches {launched[1]} (must read 0)")
+        f"site_grams_tiled launches {launched[1]} (must read 0); pair_moments "
+        f"launches {pair_moments.launches} (must read {detections})")
     if launched != (0, 0):
         fail(f"{label}: a Gram kernel launched on the linear path: {launched}")
+    if pair_moments.launches != detections:
+        fail(f"{label}: detection launched its kernel {pair_moments.launches} times, "
+             f"not {detections}")
     return routes
 
 
@@ -1444,7 +1632,7 @@ def config1_float64_and_tf32(torch, np, coords, forces, cmap, groups, spec, host
 
     reset_counts()
     f64 = fit("auto", f=forces.double())
-    routes = read_counts("config #1, float64 forces on the card")
+    routes = read_counts("config #1, float64 forces on the card", 1)
     err64 = rel_rms(torch, f64, host)
     log(f"  float64 forces: mapped forces rel RMS {err64:.3e} off the float64 host "
         f"fit (limit {CONFIG1_REL_RMS_LIMIT:.0e}), dtype {f64.dtype}, on {f64.device}")
@@ -1458,7 +1646,7 @@ def config1_float64_and_tf32(torch, np, coords, forces, cmap, groups, spec, host
     try:
         reset_counts()
         res = aggforce_torch.project_forces(coords, forces, cmap)
-        routes = read_counts("config #1 with TF32 on for the process")
+        routes = read_counts("config #1 with TF32 on for the process", 1)
         still_on = matmul.allow_tf32
         # the same fit with the full-fp32 scope bypassed, to show what the
         # scope guards against (logged, not gated)
@@ -1500,7 +1688,7 @@ def uniform_map_check(torch, np, coords, forces, cmap, groups):
     res = aggforce_torch.project_forces(
         coords, forces, cmap, method=constraint_aware_uni_map
     )
-    read_counts("config #1, constraint_aware_uni_map")
+    read_counts("config #1, constraint_aware_uni_map", 1)
     members = np.zeros(cmap.standard_matrix.shape)
     for s, row in enumerate(cmap.standard_matrix):
         sites = set(np.nonzero(row)[0].tolist())
@@ -1539,7 +1727,7 @@ def phase_linear_config1(torch, np, coords_np, forces_np, cmap, groups, spec, sm
     result = aggforce_torch.project_forces(coords, forces, cmap)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    routes = read_counts("config #1, project_forces with every default")
+    routes = read_counts("config #1, project_forces with every default", 1)
     found = result["constraints"]
     log(f"config #1: first project_forces {first_s:.3f} s (detection, fit and "
         f"mapping); {len(found)} pairs detected, equal to the "
@@ -1966,7 +2154,7 @@ def phase_gauss_config2(torch, np, coords_np, forces_np, cmap, groups, smi):
         torch, lambda: fit(GAUSS_SEEDS[0]), fit_med, top=10, kind_of=linear_kind
     )
     peak = torch.cuda.max_memory_allocated()
-    read_counts("config #2, every Gaussian path")
+    read_counts("config #2, every Gaussian path", 1)
     log(f"config #2: peak device memory {peak / 2**20:.1f} MiB; profiled fit "
         f"{busy_s / wall_s:.1%} busy ({smi})")
     return {
@@ -2005,7 +2193,7 @@ def phase_linear_sweep(torch, np, smi):
 
     reset_counts()
     found, tmap, det_s, first_s = detect_and_fit()
-    routes = read_counts("linear sweep, first fit")
+    routes = read_counts("linear sweep, first fit", 1)
     log(f"linear sweep: detection {det_s:.3f} s on 256 frames ({len(found)} "
         f"pairs, equal to the {len(groups)} synthesized: {found == set(groups)}); "
         f"first qp_linear_map {first_s:.3f} s -> "
@@ -2017,7 +2205,7 @@ def phase_linear_sweep(torch, np, smi):
     linear_map_gates(torch, np, tmap, cmap, found)
     reset_counts()
     _, tmap, det2_s, second_s = detect_and_fit()
-    routes = read_counts("linear sweep, second fit")
+    routes = read_counts("linear sweep, second fit", 1)
     if routes != {"device": 1}:
         fail(f"linear sweep: the second fit did not take the device route: {routes}")
     log(f"linear sweep, second: detection {det2_s:.3f} s, qp_linear_map "
@@ -2052,7 +2240,7 @@ def phase_linear_sweep(torch, np, smi):
     expect = torch.einsum("sn,tnd->tsd", witness, head.double())
     reset_counts()
     fault = qp_linear_map(traj, cmap, constraints=set())
-    read_counts("linear sweep, planted fault")
+    read_counts("linear sweep, planted fault", 0)
     errs = {}
     for name, tm in (("device fit (main path)", tmap),
                      ("planted fault: constraints=set()", fault)):
@@ -2355,10 +2543,12 @@ def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
     grid must equal ``fused_gb_cv_grid``'s table for the same generator and
     launch kernel 1 five times per featurizer; the linear grid at config #1
     (``linear_map_cv``) must lie within CV_REL_LIMIT of float64 scores and
-    launch no kernel. Constraints are detected (``constrained_inds="auto"``)."""
+    launch no Gram kernel. Constraints are detected (``constrained_inds="auto"``),
+    the detection kernel once per grid."""
     import aggforce_torch
     from aggforce_torch import Curry, Multifeaturize, gb_feat, id_feat
     from aggforce_torch.agg import NRUNS_KNAME, SCORES_KNAME
+    from aggforce_torch.constraints.finder import pair_moments
     from aggforce_torch.ops.gram import site_grams
     from aggforce_torch.qp import qp_feat_linear_map
     from aggforce_torch.qp.cv import fused_gb_cv_grid
@@ -2380,6 +2570,8 @@ def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
     )
     grid_s = time.perf_counter() - t0
     launches = site_grams.launches
+    grid_path = "featurized grid (project_forces_grid_cv)"
+    DETECT_LAUNCHES[grid_path] = pair_moments.launches
     direct = fused_gb_cv_grid(
         coords, forces, cmap, set(groups), KBT,
         [recognize_canonical_featurizer(f) for f in feats], l2s, n_folds=CV_FOLDS,
@@ -2394,9 +2586,13 @@ def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
     log(f"featurized grid through project_forces_grid_cv (n_basis 5 and 7 x l2 "
         f"{l2s}): {grid_s:.3f} s, site_grams launches {launches} (must be "
         f"{CV_FOLDS * len(feats)}); against fused_gb_cv_grid: largest rel diff "
-        f"{worst:.3e}, bitwise equal {bitwise}; runs per point {sorted(runs)}")
+        f"{worst:.3e}, bitwise equal {bitwise}; runs per point {sorted(runs)}; "
+        f"pair_moments launches {DETECT_LAUNCHES[grid_path]} (must be 1)")
     if launches != CV_FOLDS * len(feats):
         fail(f"the featurized grid launched site_grams {launches} times")
+    if DETECT_LAUNCHES[grid_path] != 1:
+        fail(f"the featurized grid's detection launched its kernel "
+             f"{DETECT_LAUNCHES[grid_path]} times, not once")
     if len(out[SCORES_KNAME]) != len(feats) * len(l2s) or runs != {CV_FOLDS}:
         fail("the featurized grid's table is not the grid")
     if not worst <= 1e-6:
@@ -2407,7 +2603,7 @@ def phase_cv_grids(torch, np, coords_np, forces_np, cmap, groups):
         {"l2_regularization": CV_L2S}, coords, forces, n_folds=CV_FOLDS,
         rng=np.random.default_rng(CV_SEED), fast=True, coord_map=cmap,
     )
-    read_counts("config #1 linear CV through project_forces_grid_cv")
+    read_counts("config #1 linear CV through project_forces_grid_cv", 1)
     exact = linear_cv_float64(torch, np, forces, cmap, groups)
     worst = 0.0
     for i, (label, score) in enumerate(lin[SCORES_KNAME].items()):
@@ -2731,7 +2927,7 @@ def phase_generic(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
         )
         torch.cuda.synchronize()
         secs[backend] = time.perf_counter() - t0
-        read_counts(f"generic path, {backend} backend")
+        read_counts(f"generic path, {backend} backend", 0)
         log(f"generic path, {backend} backend: {secs[backend]:.3f} s -> "
             f"{GENERIC_FRAMES / secs[backend]:.1f} frames/s ({smi})")
     gram, rows, b = generic_problem(
@@ -3024,14 +3220,14 @@ def phase_streamed_linear(torch, np, smi, tmpdir):
         smap = qp_linear_map_streamed(stream, cmap, constraints=set(groups))
         torch.cuda.synchronize()
         fit_s.append(time.perf_counter() - t0)
-        read_counts(f"streamed linear fit {attempt + 1}")
+        read_counts(f"streamed linear fit {attempt + 1}", 0)
     reset_counts()
     traj = Trajectory(coords=coords, forces=forces)
     t0 = time.perf_counter()
     mmap = qp_linear_map(traj, cmap, constraints=set(groups))
     torch.cuda.synchronize()
     mem_s = time.perf_counter() - t0
-    read_counts("in-memory linear fit of the same frames")
+    read_counts("in-memory linear fit of the same frames", 0)
     diff = float(np.abs(
         smap.force_map.standard_matrix - mmap.force_map.standard_matrix
     ).max())
@@ -4346,6 +4542,7 @@ def main() -> int:
     coords, forces, cmap, groups = fixture()
     spec = GBFeatSpec(outer=OUTER, n_basis=N_BASIS, width=WIDTH)
     ops, fold_ops, max_err = phase_kernels(torch, np, coords, forces, cmap, groups, spec)
+    detection = phase_detection(torch, np, coords, groups, smi)
     spec, launches, first_fit_s, peak_bytes, problem64 = phase_main_path(
         torch, np, coords, forces, cmap, groups
     )
@@ -4456,6 +4653,16 @@ def main() -> int:
             },
             "max_abs_err": tiled_err,
             **tiled_times,
+        },
+        {
+            "name": "pair_moments",
+            "route": "cuda",
+            "source": "aggforce_torch/csrc/pair_moments.cu",
+            "replaces": "none (the JAX package's finder is XLA: "
+                        "aggforce_tpu/constraints/finder.py:38)",
+            "launches": sum(DETECT_LAUNCHES.values()),
+            "launches_by_path": dict(DETECT_LAUNCHES),
+            **detection,
         },
     ]
     log(f"process seconds {time.perf_counter() - _T_START:.3f}")

@@ -186,3 +186,112 @@ def test_detection_takes_no_matmul_under_process_tf32(monkeypatch, api):
         )
     assert got == groups
     assert probe == [groups] * 3
+
+
+def test_cpu_and_numpy_inputs_take_the_plain_path(monkeypatch):
+    """Numpy and CPU tensors never reach the card kernel (its launch count
+    stays 0), and their masks are the plain moments' bit for bit, within
+    one system and across two."""
+
+    def no_kernel():
+        raise AssertionError("a CPU input reached the card kernel")
+
+    monkeypatch.setattr(pfind, "_pair_moments_lib", no_kernel)
+    monkeypatch.setattr(pfind.pair_moments, "launches", 0)
+    coords = _rigid_pairs(2)
+    rng = np.random.default_rng(6)
+    jitter = rng.normal(scale=1e-2, size=(len(coords), 4, 3)).astype(np.float32)
+    other = coords[:, 3:7] + jitter
+    other[:, 2] = coords[:, 9] + np.float32([0.0, 0.0, 0.25])
+    cpu = torch.device("cpu")
+    centroid = coords.mean(axis=1, keepdims=True)
+    x = pfind._centered(coords, centroid, cpu)
+    o = pfind._centered(other, centroid, cpu)
+    t, n = x.shape[:2]
+
+    def plain(a, b, cross):
+        hits = pfind._distance_sd(a, b, pfind._chunk_length(t, n, b.shape[1])) < 1e-3
+        if not cross:
+            hits.fill_diagonal_(False)
+        return hits.numpy()
+
+    for a, b, cross in ((x, x, False), (x, o, True)):
+        chunk = pfind._chunk_length(t, n, b.shape[1])
+        got = pfind._constraint_mask(a, b, 1e-3, cross, chunk)
+        assert got.dtype == np.bool_ and np.array_equal(got, plain(a, b, cross))
+    ii, jj = np.nonzero(plain(x, x, False))
+    within = {frozenset(p) for p in zip(ii.tolist(), jj.tolist())}
+    ii, jj = np.nonzero(plain(x, o, True))
+    across = {(int(i), int(j)) for i, j in zip(ii, jj)}
+    assert within == {frozenset((0, 1)), frozenset((4, 5))} and (2, 9) in across
+    for arr, cross in ((coords, other), (torch.as_tensor(coords), torch.as_tensor(other))):
+        assert pfind.guess_pairwise_constraints(arr, device="cpu") == within
+        found = pfind.guess_pairwise_constraints(arr, cross_xyz=cross, device="cpu")
+        assert found == across
+    assert pfind.pair_moments.launches == 0
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["float64", "strided", "frames", "rank", "cpu", "other_float64", "other_strided",
+     "xy_only", "no_frames"],
+)
+def test_kernel_wrapper_refuses_inputs_outside_its_contract(monkeypatch, bad):
+    """The card kernel's wrapper raises on what the kernel does not take,
+    before any launch, rather than falling back to the plain path: a
+    float64 or non-contiguous input (either side), unequal frame counts, a
+    wrong rank or a last axis other than xyz, no frames, a tensor off the
+    card."""
+
+    def no_kernel():
+        raise AssertionError("the wrapper launched on inputs it must refuse")
+
+    monkeypatch.setattr(pfind, "_pair_moments_lib", no_kernel)
+    x = torch.zeros((16, 5, 3))
+    other = None
+    match = {"float64": "float32", "strided": "contiguous", "frames": "frames",
+             "rank": r"\(T >= 1", "cpu": "CUDA", "other_float64": "other must be float32",
+             "other_strided": "other must be contiguous", "xy_only": r"\(T >= 1",
+             "no_frames": r"\(T >= 1"}[bad]
+    if bad == "float64":
+        x = x.double()
+    elif bad == "strided":
+        x = torch.zeros((5, 16, 3)).transpose(0, 1)
+    elif bad == "frames":
+        other = torch.zeros((15, 4, 3))
+    elif bad == "rank":
+        x = torch.zeros((16, 15))
+    elif bad == "other_float64":
+        other = torch.zeros((16, 4, 3), dtype=torch.float64)
+    elif bad == "other_strided":
+        other = torch.zeros((4, 16, 3)).transpose(0, 1)
+    elif bad == "xy_only":
+        x = torch.zeros((16, 5, 2))
+    elif bad == "no_frames":
+        x = torch.zeros((0, 5, 3))
+    with pytest.raises(ValueError, match=match):
+        pfind.pair_moments(x, other)
+
+
+@pytest.mark.parametrize("threshold", [1e-4, 1e-3, 1e-2])
+def test_plain_path_follows_the_threshold_like_jax(threshold):
+    """The CPU path keeps the JAX package's threshold rule at thresholds
+    around the default: the rigid pairs (sd at rounding level) are found,
+    the floppy ones (sd ~0.07) are not."""
+    coords = _rigid_pairs(2)
+    expect, got, got_t = _both(coords, threshold=threshold)
+    assert expect == {frozenset((0, 1)), frozenset((4, 5))}
+    assert got == expect and got_t == expect
+
+
+@pytest.mark.parametrize("n_other", [3, 20])
+def test_cross_detection_with_more_or_fewer_sites_matches_jax(n_other):
+    """Cross mode on the CPU with the other system smaller and larger than
+    ``xyz``: the ordered (other, xyz) pairs equal the JAX package's."""
+    coords = _rigid_pairs(3, n_frames=120)
+    rng = np.random.default_rng(10 + n_other)
+    other = (coords[:, :1] + 0.3 * rng.normal(size=(120, n_other, 3))).astype(np.float32)
+    other[:, n_other - 1] = coords[:, 7] + np.float32([0.0, 0.0, 0.3])
+    expect, got, got_t = _both(coords, cross_xyz=other, threshold=1e-3)
+    assert expect == {(n_other - 1, 7)}
+    assert got == expect and got_t == expect
