@@ -40,6 +40,7 @@ import torch
 
 from ..constraints import Constraints
 from ..map import CLAFTMap, LinearMap, SeperableTMap, TLinearMap
+from ..ops.eqp import converged
 from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device
 from ..qp.fusedfeat import (
     GBFeatSpec,
@@ -257,7 +258,7 @@ def qp_linear_map_streamed(
     )
     fetched = torch.cat([fmap_dev.reshape(-1), resid_dev.reshape(1)]).cpu().numpy()
     fmap_mat = fetched[:-1].reshape(fmap_dev.shape)
-    if not np.all(np.isfinite(fmap_mat)) or not float(fetched[-1]) <= resid_tol:
+    if not converged(fetched[-1], resid_tol, fmap_mat):
         # escalation re-accumulates the Gram in float64 on the host (rare
         # path; correctness over speed); a mesh fit solves its reduced
         # (replicated) Gram in float64

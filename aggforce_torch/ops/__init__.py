@@ -3,10 +3,8 @@
 from .core import trjdot, distances, qp_form, abatch
 from . import torchcore
 from .eqp import (
-    eqp_solve,
     eqp_solve_auglag,
     eqp_solve_host,
-    batched_eqp_solve,
     batched_eqp_solve_auglag,
     batched_eqp_solve_shared,
 )

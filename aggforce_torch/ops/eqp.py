@@ -13,10 +13,11 @@ reference's iterative OSQP loop. This module provides:
     Schur tail with early-exit refinement and a residual per problem;
   * :func:`batched_eqp_solve_shared` — many fits sharing the same per-site
     cost matrices P: each P is factorized once and reused by every fit;
-  * :func:`eqp_solve` / :func:`batched_eqp_solve` — regularized-LU KKT
-    solves with refinement (``torch.linalg.lu_factor``);
+    :func:`batched_eqp_solve_shared_mesh` splits it over a mesh's ranks;
   * :func:`eqp_solve_host` — the float64 numpy/LAPACK oracle, the
-    escalation target of every fit.
+    escalation target of every fit;
+  * :func:`converged` — the one rule that decides, from a device solve's
+    residual and values, whether it stands or escalates to the oracle.
 
 The linear algebra goes to cuSOLVER/cuBLAS through ``torch.linalg``
 (``cholesky_ex``, ``cholesky_inverse``, ``cholesky_solve``). Each solver
@@ -32,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import as_frame_mesh
 from ..utils.device import full_fp32
 from ..utils.prof import span
 
@@ -255,6 +257,60 @@ def batched_eqp_solve_shared(
     return x
 
 
+@full_fp32()
+def batched_eqp_solve_shared_mesh(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    mesh,
+    delta: float = 1e-6,
+    delta_fallback: float = 3e-4,
+    iters: int = 10,
+    return_resid: bool = False,
+    host_checks: bool = True,
+):
+    r""":func:`batched_eqp_solve_shared` split over the ranks of a mesh.
+
+    Two axes of the solve ride the mesh (a ``parallel.FrameMesh``), as in
+    the JAX package's ``shard_map`` version:
+
+      * the per-site factorization and explicit inverse, the window's fixed
+        cost, is split over SITES (padded to a multiple of the mesh size
+        with identity problems), and one all-gather gives every rank all
+        the inverses;
+      * the per-fit Schur stage is split over FITS (padded by repeating the
+        last fit), and one all-gather of the fits' solutions and residuals
+        gives every rank all of them.
+
+    Every rank takes the whole (replicated) P, A and B and returns the
+    whole result. Each problem's arithmetic does not depend on the batch it
+    is in, so the result matches the replicated solver's inverse route per
+    problem; the inverse route is always taken.
+    """
+    fm = as_frame_mesh(mesh)
+    f, s, n = A.shape[0], A.shape[1], P.shape[-1]
+    pad_f, pad_s = (-f) % fm.size, (-s) % fm.size
+    if pad_f:
+        A = torch.cat([A, A[-1:].expand(pad_f, *A.shape[1:])])
+        B = torch.cat([B, B[-1:].expand(pad_f, *B.shape[1:])])
+    if pad_s:
+        eye = torch.eye(n, dtype=P.dtype, device=P.device)
+        P = torch.cat([P, eye.expand(pad_s, n, n)])
+    s_lo, s_hi = fm.shard_bounds(s + pad_s)
+    f_lo, f_hi = fm.shard_bounds(f + pad_f)
+    minv = fm.all_gather(
+        _site_factor_inv(P[s_lo:s_hi], delta, delta_fallback, host_checks)
+    )[:s]
+    x_loc, r_loc = _shared_schur_stage(
+        minv, A[f_lo:f_hi], B[f_lo:f_hi], delta, delta_fallback, iters,
+        host_checks=host_checks,
+    )
+    x = fm.all_gather(x_loc)[:f]
+    if return_resid:
+        return x, fm.all_gather(r_loc)[:f]
+    return x
+
+
 @span("aggforce.solve")
 @full_fp32()
 def batched_eqp_solve_auglag(
@@ -325,69 +381,25 @@ def eqp_solve_auglag(
     return out[0]
 
 
-@span("aggforce.solve")
-@full_fp32()
-def batched_eqp_solve(
-    P: torch.Tensor,
-    A: torch.Tensor,
-    B: torch.Tensor,
-    delta: float = 1e-6,
-    refine_iters: int = 4,
-) -> torch.Tensor:
-    """Regularized-LU KKT solve with refinement, batched over a leading axis.
+def converged(resid, tol: float, *values, finite=None):
+    """Whether a float32 device solve stands, or must be redone in float64.
 
-    P: (s, n, n); A: (s, m, n); B: (s, m, k) -> (s, n, k). Each equilibrated
-    KKT matrix is factored once with ``delta`` on its diagonal blocks, and
-    ``refine_iters`` sweeps of iterative refinement run against the
-    unregularized operator, as :func:`eqp_solve_host` does in float64.
-
-    The JAX package routes this call to its Cholesky solver on the TPU,
-    whose compiler cannot build pivoted LU at these sizes; here the LU
-    route is always taken.
+    True where the solver's residual is at most ``tol`` and every value the
+    solve produced is finite. NaN-aware both ways: a NaN residual or a
+    non-finite value fails, so it escalates. ``resid`` is a scalar or an
+    array of per-site, per-fit or per-cell residuals; each value is reduced
+    over its axes past ``resid``'s (an (S, K) coefficient array against (S,)
+    residuals gives one flag a site). ``finite`` is a finiteness flag
+    already taken on the device, shaped as ``resid``. The comparison is made
+    in float64. Returns a bool for a scalar residual, else a bool array.
     """
-    s, n, m = P.shape[0], P.shape[-1], A.shape[1]
-    p_scale = torch.diagonal(P, dim1=1, dim2=2).sum(-1) / n + 1e-30
-    Pn = P / p_scale[:, None, None]
-    row_norm = torch.linalg.norm(A, dim=2, keepdim=True) + 1e-30
-    An, Bn = A / row_norm, B / row_norm
-    eye_n = torch.eye(n, dtype=P.dtype, device=P.device)
-    eye_m = torch.eye(m, dtype=P.dtype, device=P.device)
-    AnT = An.transpose(1, 2)
-    K_reg = torch.cat(
-        [
-            torch.cat([Pn + delta * eye_n, AnT], 2),
-            torch.cat([An, (-delta * eye_m).expand(s, m, m)], 2),
-        ],
-        1,
-    )
-    K_true = torch.cat(
-        [torch.cat([Pn, AnT], 2), torch.cat([An, An.new_zeros((s, m, m))], 2)], 1
-    )
-    lu, piv = torch.linalg.lu_factor(K_reg)
-    rhs = torch.cat([Bn.new_zeros((s, n, Bn.shape[2])), Bn], 1)
-    Z = torch.linalg.lu_solve(lu, piv, rhs)
-    for _ in range(refine_iters):
-        Z = Z + torch.linalg.lu_solve(lu, piv, rhs - torch.matmul(K_true, Z))
-    return Z[:, :n]
-
-
-def eqp_solve(
-    P: torch.Tensor,
-    A: torch.Tensor,
-    B: torch.Tensor,
-    delta: float = 1e-6,
-    refine_iters: int = 4,
-) -> torch.Tensor:
-    """Solve min x^T P x s.t. A x = b for every column b of B.
-
-    Single-problem :func:`batched_eqp_solve`: a regularized-LU KKT solve
-    with iterative refinement against the unregularized operator. The JAX
-    package routes it to its Cholesky solver on the TPU; here the LU route
-    is always taken.
-    """
-    return batched_eqp_solve(
-        P[None], A[None], B[None], delta=delta, refine_iters=refine_iters
-    )[0]
+    ok = np.asarray(resid, dtype=np.float64) <= tol
+    for v in values:
+        fin = np.isfinite(np.asarray(v))
+        ok = ok & fin.all(axis=tuple(range(ok.ndim, fin.ndim)))
+    if finite is not None:
+        ok = ok & np.asarray(finite, dtype=bool)
+    return bool(ok) if ok.ndim == 0 else ok
 
 
 def eqp_solve_host(

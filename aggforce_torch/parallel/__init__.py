@@ -2,13 +2,21 @@
 # ruff: noqa: F401
 from .mesh import (
     FrameMesh,
-    batched_eqp_solve_shared_mesh,
     make_mesh,
     sharded_force_smoothness,
-    sharded_linear_fit,
 )
 from .distributed import (
     global_frame_mesh,
     initialize_distributed,
     process_frame_slice,
 )
+
+
+def __getattr__(name):
+    # the mesh's linear fit is the device linear fit of qp.qplinear, which
+    # imports this package: re-exported on first use, not at import
+    if name == "sharded_linear_fit":
+        from ..qp.qplinear import sharded_linear_fit
+
+        return sharded_linear_fit
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,7 +20,8 @@ writes as a sharding or a collective maps to:
   * ``psum`` over the axis: :meth:`FrameMesh.all_reduce`;
   * ``all_gather(..., tiled=True)``: :meth:`FrameMesh.all_gather`;
   * ``shard_map`` over sites or fits: each rank solves its slice and one
-    all-gather rebuilds the whole result (:func:`batched_eqp_solve_shared_mesh`);
+    all-gather rebuilds the whole result
+    (``ops.eqp.batched_eqp_solve_shared_mesh``);
   * a replicated output: every rank returns the whole result.
 
 Every draw a fit takes (constraint frames, folds, noise seeds) is rank 0's,
@@ -35,8 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.eqp import _shared_schur_stage, _site_factor_inv, eqp_solve_auglag
-from ..utils.device import DeviceLike, full_fp32, resolve_device
+from ..utils.device import DeviceLike, resolve_device
 
 FRAME_AXIS = "frames"
 
@@ -205,60 +205,6 @@ def shard_frames(
     return (*outs, mask)
 
 
-@full_fp32()
-def _sharded_fit(forces, con_mat, cmap_mat, l2_regularization, mesh: FrameMesh):
-    """The dense-design linear fit of this rank's (frames, N, 3) forces:
-    local Gram, all-reduce, replicated solve. Returns (map, resid)."""
-    t, n, d = forces.shape
-    design = torch.matmul(forces.transpose(1, 2).reshape(t * d, n), con_mat)
-    gram = mesh.all_reduce(torch.matmul(design.T, design))
-    gram = gram + l2_regularization * torch.matmul(con_mat.T, con_mat)
-    a_mat = torch.matmul(cmap_mat, con_mat)
-    basis = torch.eye(a_mat.shape[0], dtype=forces.dtype, device=forces.device)
-    x, resid = eqp_solve_auglag(gram, a_mat, basis, return_resid=True)
-    return torch.matmul(con_mat, x).T, resid
-
-
-def sharded_linear_fit(
-    forces,
-    con_mat: np.ndarray,
-    cmap_mat: np.ndarray,
-    l2_regularization: float = 0.0,
-    mesh=None,
-    return_resid: bool = False,
-):
-    """Fit the optimal linear force-map matrix with frames sharded on a mesh.
-
-    The dense-design counterpart of the device fit of
-    :func:`aggforce_torch.qp.qp_linear_map` (which takes the constraint
-    labels instead of ``con_mat``), returning the (n_cg, n_fg) map as numpy
-    on every rank. Each rank builds the design of its share of the frames,
-    the Grams are summed over the ranks, and the KKT system is solved on
-    every rank, all in the forces' float dtype at full float32 precision.
-    ``mesh`` None is :func:`make_mesh`. With ``return_resid=True`` also
-    returns the solver's equilibrated constraint violation, the diagnostic
-    callers check before trusting a float32 solve.
-    """
-    fm = as_frame_mesh(make_mesh() if mesh is None else mesh)
-    is64 = (
-        forces.dtype == torch.float64
-        if isinstance(forces, torch.Tensor)
-        else np.asarray(forces[:0]).dtype == np.float64
-    )
-    dtype = torch.float64 if is64 else torch.float32
-    local, _ = shard_frames(fm, [forces], pad=False, dtype=dtype)
-
-    def dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=fm.device)
-
-    out, resid = _sharded_fit(local, dev(con_mat), dev(cmap_mat), float(l2_regularization), fm)
-    fetched = torch.cat([out.reshape(-1), resid.reshape(1)]).cpu().numpy()
-    out_np = fetched[:-1].reshape(out.shape)
-    if return_resid:
-        return out_np, float(fetched[-1])
-    return out_np
-
-
 def sharded_force_smoothness(array, mesh=None) -> float:
     """Mean squared element with the frame axis sharded over the mesh (each
     rank sums its share in float64; one all-reduce)."""
@@ -266,57 +212,3 @@ def sharded_force_smoothness(array, mesh=None) -> float:
     (local, _) = shard_frames(fm, [array], pad=False, dtype=torch.float64)
     total = fm.all_reduce(torch.sum(local * local).reshape(1))
     return float(total.cpu()[0]) / float(np.prod(np.shape(array)))
-
-
-@full_fp32()
-def batched_eqp_solve_shared_mesh(
-    P: torch.Tensor,
-    A: torch.Tensor,
-    B: torch.Tensor,
-    mesh,
-    delta: float = 1e-6,
-    delta_fallback: float = 3e-4,
-    iters: int = 10,
-    return_resid: bool = False,
-    host_checks: bool = True,
-):
-    r""":func:`aggforce_torch.ops.eqp.batched_eqp_solve_shared` split over the ranks of a mesh.
-
-    Two axes of the solve ride the mesh (a :class:`FrameMesh`), as in the
-    JAX package's ``shard_map`` version (its ``ops/eqp.py``):
-
-      * the per-site factorization and explicit inverse, the window's fixed
-        cost, is split over SITES (padded to a multiple of the mesh size
-        with identity problems), and one all-gather gives every rank all
-        the inverses;
-      * the per-fit Schur stage is split over FITS (padded by repeating the
-        last fit), and one all-gather of the fits' solutions and residuals
-        gives every rank all of them.
-
-    Every rank takes the whole (replicated) P, A and B and returns the
-    whole result. Each problem's arithmetic does not depend on the batch it
-    is in, so the result matches the replicated solver's inverse route per
-    problem; the inverse route is always taken.
-    """
-    fm = as_frame_mesh(mesh)
-    f, s, n = A.shape[0], A.shape[1], P.shape[-1]
-    pad_f, pad_s = (-f) % fm.size, (-s) % fm.size
-    if pad_f:
-        A = torch.cat([A, A[-1:].expand(pad_f, *A.shape[1:])])
-        B = torch.cat([B, B[-1:].expand(pad_f, *B.shape[1:])])
-    if pad_s:
-        eye = torch.eye(n, dtype=P.dtype, device=P.device)
-        P = torch.cat([P, eye.expand(pad_s, n, n)])
-    s_lo, s_hi = fm.shard_bounds(s + pad_s)
-    f_lo, f_hi = fm.shard_bounds(f + pad_f)
-    minv = fm.all_gather(
-        _site_factor_inv(P[s_lo:s_hi], delta, delta_fallback, host_checks)
-    )[:s]
-    x_loc, r_loc = _shared_schur_stage(
-        minv, A[f_lo:f_hi], B[f_lo:f_hi], delta, delta_fallback, iters,
-        host_checks=host_checks,
-    )
-    x = fm.all_gather(x_loc)[:f]
-    if return_resid:
-        return x, fm.all_gather(r_loc)[:f]
-    return x

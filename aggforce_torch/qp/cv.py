@@ -37,7 +37,7 @@ import torch
 
 from ..constraints import Constraints
 from ..map import LinearMap
-from ..ops.eqp import batched_eqp_solve_auglag, eqp_solve_host
+from ..ops.eqp import batched_eqp_solve_auglag, converged, eqp_solve_host
 from ..ops.gram import site_grams
 from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import Trajectory
@@ -276,7 +276,7 @@ def linear_map_cv(
         resids.append(resid)
     qf_all = torch.cat(qf_blocks, dim=0).cpu().numpy().astype(np.float32)
     resid_all = torch.cat(resids, dim=0).cpu().numpy()
-    bad = ~(resid_all <= resid_tol)  # NaN-aware
+    bad = ~converged(resid_all, resid_tol, qf_all)
     if bad.any():
         # float32 solve did not converge on SOME (l2, fold) cells: redo
         # exactly those with the float64 oracle, reusing the device Grams
@@ -447,7 +447,7 @@ def fused_gb_cv(
     # the one host sync of the grid
     fetched = torch.stack([torch.cat(qf_blocks), torch.cat(resids)]).cpu().numpy()
     qf_all, resid_all = fetched[0].copy(), fetched[1]
-    bad = ~(resid_all <= resid_tol)  # NaN-aware
+    bad = ~converged(resid_all, resid_tol, qf_all)
     if bad.any():
         # float32 solve unconverged on SOME (l2, fold) cells: redo exactly
         # those with the float64 oracle, reusing the device Grams

@@ -41,7 +41,7 @@ import torch
 
 from ..constraints import Constraints, reduce_constraint_sets
 from ..map import CLAFTMap, CLAMap, LinearMap
-from ..ops.eqp import eqp_solve_auglag, eqp_solve_host
+from ..ops.eqp import converged, eqp_solve_auglag, eqp_solve_host
 from ..parallel.mesh import agree_seed, as_frame_mesh
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
@@ -224,7 +224,7 @@ def _device_site_solve(
     # one host fetch of solution and diagnostic
     fetched = torch.cat([params_dev[:, 0], resid.reshape(1)]).cpu().numpy()
     params, resid_v = fetched[:-1], float(fetched[-1])
-    if not np.all(np.isfinite(params)) or not resid_v <= opts.get("resid_tol", 1e-4):
+    if not converged(resid_v, opts.get("resid_tol", 1e-4), params):
         # f32 conditioning failure (non-finite, or finite but unconverged
         # past tolerance): retry with the f64 oracle
         params = eqp_solve_host(gram, constr_mult, constr_target[:, None])[:, 0]

@@ -31,7 +31,6 @@ geometry once and emits the mapped forces directly (FusedGBMap.__call__),
 with the protocol-compatible scale/trans closures kept for CLAMap API parity.
 """
 
-import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -43,7 +42,12 @@ import torch
 
 from ..constraints import Constraints
 from ..map import CLAFTMap, CLAMap, LinearMap, TLinearMap
-from ..ops.eqp import batched_eqp_solve_shared, eqp_solve_host
+from ..ops.eqp import (
+    batched_eqp_solve_shared,
+    batched_eqp_solve_shared_mesh,
+    converged,
+    eqp_solve_host,
+)
 from ..ops.gram import (
     mirror_tiles,
     pack_operands,
@@ -53,13 +57,7 @@ from ..ops.gram import (
     site_grams_tiled_plain,
     unpack_gram,
 )
-from ..parallel.mesh import (
-    FrameMesh,
-    as_frame_mesh,
-    batched_eqp_solve_shared_mesh,
-    mesh_device,
-    shard_frames,
-)
+from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import Trajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
 from ..utils.prof import span
@@ -687,7 +685,7 @@ def _package_fused_map(
     coefs_np = coefs.cpu().numpy()
     resid_val = float(solver_resid)
     escalated = False
-    if not np.all(np.isfinite(coefs_np)) or not resid_val <= resid_tol:  # NaN-aware
+    if not converged(resid_val, resid_tol, coefs_np):
         escalated = True
         # f32 solves on ill-conditioned feature Grams can fail outright
         # (non-finite) or converge past tolerance while staying finite;
@@ -886,8 +884,7 @@ def fused_gb_linear_map_blocked(
     chunks, ``True`` off the card raises. ``device`` is where the fit runs.
 
     Block k+1 is computed before block k's results are drained (fetched,
-    checked and escalated), a depth-1 pipeline; ``AGGFORCE_SWEEP_PIPELINE=0``
-    drains every block at once instead. Both give the same coefficients.
+    checked and escalated), a depth-1 pipeline.
 
     Escalation is per site, by design: a site whose float32 solve is
     non-finite or misses ``resid_tol`` (NaN-aware) is re-solved by the
@@ -932,7 +929,6 @@ def fused_gb_linear_map_blocked(
         *setup["consts"], float(kbt), float(l2_regularization), spec,
         solver_delta, solver_iters, gram_fn,
     )
-    pipelined = os.environ.get("AGGFORCE_SWEEP_PIPELINE", "1") == "1"
     # this rank's blocks, all sb rows each (padding included, so every
     # rank's stack has one shape): coefficients, residual, escalated flag
     rows_blocks = []
@@ -943,7 +939,7 @@ def fused_gb_linear_map_blocked(
         n_valid, coefs_b, resid_b, gram_b, rows_b, b_b = entry
         coefs_np = np.array(coefs_b.cpu())
         resid_np = np.array(resid_b.cpu())
-        bad = ~np.isfinite(coefs_np).all(axis=1) | ~(resid_np <= resid_tol)  # NaN-aware
+        bad = ~converged(resid_np, resid_tol, coefs_np)
         bad[n_valid:] = False  # padding sites are dropped, never escalated
         if bad.any():
             t0 = time.perf_counter()
@@ -967,11 +963,7 @@ def fused_gb_linear_map_blocked(
         )
         if pending is not None:
             drain(pending)
-            pending = None
-        if pipelined:
-            pending = entry
-        else:
-            drain(entry)
+        pending = entry
         del entry
     if pending is not None:
         drain(pending)
@@ -1022,7 +1014,7 @@ def _fit_coefs_batch(
     site once for every fit. The solve runs without host checks, so the
     whole window is enqueued without a host sync. With ``mesh`` the Gram is
     this rank's frames' summed over the ranks, and the solve is
-    :func:`parallel.mesh.batched_eqp_solve_shared_mesh` (sites, then fits, split
+    :func:`ops.eqp.batched_eqp_solve_shared_mesh` (sites, then fits, split
     over the ranks). Returns (:func:`_batch_fit_outputs`, gram), all on the
     device.
     """
@@ -1293,11 +1285,12 @@ def fused_gb_linear_map_batch(
     def package(pending) -> None:
         w, n_valid, coefs_b, gram, (resid_h, finite_h), wait = pending
         wait()
-        resid_np, finite_np = resid_h.numpy(), finite_h.numpy()
+        resid_np = resid_h.numpy()
+        ok = converged(resid_np, resid_tol, finite=finite_h.numpy())
         gram_h = None  # the window's Gram on the host, fetched once if a fit escalates
         for i in range(n_valid):
             resid_i = float(resid_np[i])
-            if bool(finite_np[i]) and resid_i <= resid_tol:  # NaN-aware
+            if ok[i]:
                 force_map = FusedGBMap(
                     coefs=coefs_b[i], cmap_mat=cmap_np, onehot=onehot,
                     centers=centers, kbt=kbt, spec=spec,

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.eqp import converged
 from ..ops.torchcore import trjdot
 from ..parallel.mesh import shard_frames
 from ..trajectory import gaussian
@@ -185,13 +186,7 @@ def staged_gauss_fused(
     fmap1_np = packed[:n1].reshape(fmap1.shape)
     fmap2_np = packed[n1 : n1 + n2].reshape(fmap2.shape)
     r1, r2, remaining = (float(v) for v in packed[n1 + n2 :])
-    ok = (
-        np.all(np.isfinite(fmap1_np))
-        and np.all(np.isfinite(fmap2_np))
-        and r1 <= resid_tol
-        and r2 <= resid_tol
-    )  # NaN-aware by construction (isfinite + <=)
-    if not ok:
+    if not converged(np.maximum(r1, r2), resid_tol, fmap1_np, fmap2_np):
         return None  # the piecewise path re-runs with float64 escalation
 
     pre_tmap = SeperableTMap(

@@ -26,8 +26,8 @@ import torch
 from ..constraints import Constraints, constraint_lookup_dict, reduce_constraint_sets
 from ..map import LinearMap, SeperableTMap, TLinearMap
 from ..ops.core import qp_form
-from ..ops.eqp import eqp_solve_auglag, eqp_solve_host
-from ..parallel.mesh import as_frame_mesh, mesh_device, shard_frames
+from ..ops.eqp import converged, eqp_solve_auglag, eqp_solve_host
+from ..parallel.mesh import as_frame_mesh, make_mesh, mesh_device, shard_frames
 from ..trajectory import ForcesTrajectory
 from ..utils.device import DeviceLike, full_fp32, resolve_device
 from ..utils.prof import span
@@ -41,7 +41,7 @@ FRAME_BLOCK = 4096
 # path (``qp_feat_linear_map`` with a generic featurizer)
 DEVICE_REFINE_ITERS = 40
 
-# fits per route since the last clear(): "device", "host", "native", and
+# fits per route since the last clear(): "device", "host", and
 # "escalated" (device fits redone by the float64 host fit);
 # ``linear_map_cv`` adds "cv_escalated_cells", the (l2, fold) cells it
 # recomputed in float64
@@ -53,10 +53,10 @@ class SolverOptions(TypedDict, total=False):
 
     ``backend``: "device" (Gram and solve on the torch device, in float64
     for float64 forces and float32 otherwise), "host" (float64 LAPACK KKT),
-    "native" (in-tree C++), or "auto" (host for float64 forces when the fit
-    runs on the CPU, device otherwise). ``delta``: diagonal regularization
-    after equilibration (host and native). ``refine_iters``: refinement
-    iterations of the host or native solver. ``resid_tol``: max equilibrated
+    or "auto" (host for float64 forces when the fit runs on the CPU, device
+    otherwise); any other backend raises ValueError. ``delta``: diagonal
+    regularization after equilibration (host). ``refine_iters``: refinement
+    iterations of the host solver. ``resid_tol``: max equilibrated
     constraint violation tolerated from the float32 device solve before
     escalating to the float64 host fit. Unknown keys (e.g. the reference's
     OSQP options such as "solver", "eps_abs", "max_iter", "polish") are
@@ -75,14 +75,19 @@ DEFAULT_SOLVER_OPTIONS: SolverOptions = {
 
 _KNOWN_OPTION_KEYS = frozenset(("backend", "delta", "refine_iters", "resid_tol"))
 
+_BACKENDS = ("auto", "device", "host")
+
 
 def _solver_opts(solver_args: Optional[dict]) -> SolverOptions:
-    if solver_args is None:
-        return dict(DEFAULT_SOLVER_OPTIONS)  # type: ignore[return-value]
     out = dict(DEFAULT_SOLVER_OPTIONS)
-    for k, v in solver_args.items():
+    for k, v in (solver_args or {}).items():
         if k in _KNOWN_OPTION_KEYS:
             out[k] = v
+    if out["backend"] not in _BACKENDS:
+        raise ValueError(
+            f"unknown solver backend {out['backend']!r}: use one of "
+            + ", ".join(repr(b) for b in _BACKENDS)
+        )
     return out  # type: ignore[return-value]
 
 
@@ -185,13 +190,11 @@ def _host_linear_fit(
     l2_regularization: float,
     delta: float = 1e-12,
     refine_iters: int = 4,
-    solve=eqp_solve_host,
 ) -> np.ndarray:
-    """Float64 host twin of :func:`_device_linear_fit`; ``solve`` is the KKT
-    solver (LAPACK, or the native library's)."""
+    """Float64 host twin of :func:`_device_linear_fit` (LAPACK KKT solve)."""
     return _host_linear_fit_from_gram(
         _host_linear_gram(forces, con_mat), con_mat, cmap_mat, l2_regularization,
-        delta, refine_iters, solve,
+        delta, refine_iters,
     )
 
 
@@ -208,7 +211,6 @@ def _host_linear_fit_from_gram(
     l2_regularization: float,
     delta: float = 1e-12,
     refine_iters: int = 4,
-    solve=eqp_solve_host,
 ) -> np.ndarray:
     """The host fit's solve from its float64 Gram (also the streamed fit's
     escalation); returns the (n_cg, N) map matrix."""
@@ -216,7 +218,7 @@ def _host_linear_fit_from_gram(
         gram = gram + l2_regularization * (con_mat.T @ con_mat)
     a_mat = np.asarray(cmap_mat, dtype=np.float64) @ con_mat
     basis = np.eye(a_mat.shape[0])
-    x = solve(gram, a_mat, basis, delta=delta, refine_iters=refine_iters)
+    x = eqp_solve_host(gram, a_mat, basis, delta=delta, refine_iters=refine_iters)
     return (con_mat @ x).T
 
 
@@ -236,17 +238,16 @@ def qp_linear_map(
     ignores) reference OSQP options plus the options documented on
     :class:`SolverOptions`. ``device`` (default: the GPU, or the device of
     tensor forces) is where the device backend runs; "auto" takes it for
-    every fit that is not on the CPU, float64 forces included, and never
-    picks the native backend; ``backend="native"`` raises when its library
-    cannot be built. Tensor forces give maps that apply as torch code on their
+    every fit that is not on the CPU, float64 forces included. Tensor
+    forces give maps that apply as torch code on their
     device (``TLinearMap``); numpy forces give numpy ``LinearMap`` maps.
 
     ``mesh`` (``parallel.make_mesh``; every rank calls with all the forces)
     shards the device fit's frames: each rank uploads and reduces its share,
     one all-reduce sums the Grams, and the solve and its float64 escalation
     run replicated, so every rank returns the same map (the JAX package's
-    ``sharded_linear_fit`` route). The host and native backends are
-    single-process and ignore it.
+    ``sharded_linear_fit`` route). The host backend is single-process and
+    ignores it.
     """
     fm = as_frame_mesh(mesh) if mesh is not None else None
     if fm is not None:
@@ -258,7 +259,7 @@ def qp_linear_map(
 
     def con_mat() -> np.ndarray:
         # dense duplication matrix, built only on the paths that consume it
-        # (host/native/escalation) — at sweep scale it is a ~50 MB host
+        # (host/escalation) — at sweep scale it is a ~50 MB host
         # allocation the label-based device path never needs
         return _dense_from_labels(labels, reduced_n)
 
@@ -271,21 +272,16 @@ def qp_linear_map(
         on_cpu = resolve_device(device, forces).type == "cpu"
         backend = "host" if out_dtype == np.float64 and on_cpu else "device"
 
-    if backend in ("host", "native"):
-        if backend == "native":
-            from ..native import eqp_solve_native as solve
-        else:
-            solve = eqp_solve_host
+    if backend == "host":
         fmap_mat = _host_linear_fit(
             _host_array(forces),
             con_mat(),
             coord_map.standard_matrix,
             l2_regularization,
-            delta=opts.get("delta", 1e-11 if backend == "native" else 1e-12),
+            delta=opts.get("delta", 1e-12),
             refine_iters=opts.get("refine_iters", 4),
-            solve=solve,
         ).astype(out_dtype)
-        fit_routes[backend] += 1
+        fit_routes["host"] += 1
     else:
         dev = resolve_device(device, forces)
         fit_dtype = torch.float64 if out_dtype == np.float64 else torch.float32
@@ -306,9 +302,7 @@ def qp_linear_map(
         fmap_mat = fmap_dev.cpu().numpy()
         resid_val = float(resid_dev)
         fit_routes["device"] += 1
-        if not np.all(np.isfinite(fmap_mat)) or not resid_val <= opts.get(
-            "resid_tol", 1e-4
-        ):  # NaN-aware
+        if not converged(resid_val, opts.get("resid_tol", 1e-4), fmap_mat):
             # convergence check failed (non-finite, or equilibrated
             # constraint violation above tolerance — the analogue of OSQP's
             # eps_abs termination + polish in the reference): escalate to
@@ -365,8 +359,62 @@ def _dense_from_labels(labels: np.ndarray, reduced_n: int) -> np.ndarray:
 def make_bond_constraint_matrix(n_sites: int, constraints: Constraints) -> np.ndarray:
     """Duplication matrix C mapping reduced coefficients to per-site ones.
 
-    Dense form of :func:`constraint_labels` (kept for the host/native paths
-    and reference-parity call sites).
+    Dense form of :func:`constraint_labels` (kept for the host paths and
+    reference-parity call sites).
     """
     labels, reduced_n = constraint_labels(n_sites, constraints)
     return _dense_from_labels(labels, reduced_n)
+
+
+def _labels_from_con_mat(con_mat: np.ndarray) -> np.ndarray:
+    """The labels of a one-hot duplication matrix C (its column of each
+    site); ValueError unless C is exactly ``one_hot(labels)``."""
+    con_mat = np.asarray(con_mat)
+    labels = np.argmax(con_mat, axis=1) if con_mat.ndim == 2 else None
+    if labels is None or not np.array_equal(
+        con_mat, _dense_from_labels(labels, con_mat.shape[1])
+    ):
+        raise ValueError(
+            "con_mat must be a one-hot duplication matrix "
+            "(make_bond_constraint_matrix), one 1 in each row"
+        )
+    return labels
+
+
+def sharded_linear_fit(
+    forces,
+    con_mat: np.ndarray,
+    cmap_mat: np.ndarray,
+    l2_regularization: float = 0.0,
+    mesh=None,
+    return_resid: bool = False,
+):
+    """Fit the optimal linear force-map matrix with frames sharded on a mesh.
+
+    The device fit of :func:`qp_linear_map` with ``mesh``, on a duplication
+    matrix ``con_mat`` (``make_bond_constraint_matrix``; one that is not
+    one-hot raises ValueError) instead of constraints: each rank reduces its share
+    of the frames, one all-reduce sums the Grams, and the solve runs on
+    every rank, in the forces' float dtype at full float32 precision. It
+    returns the (n_cg, n_fg) map as numpy on every rank, without the
+    float64 escalation. ``mesh`` None is ``parallel.make_mesh()``. With
+    ``return_resid=True`` also returns the solver's equilibrated constraint
+    violation, the diagnostic callers check before trusting a float32 solve.
+    """
+    labels = _labels_from_con_mat(con_mat)
+    fm = as_frame_mesh(make_mesh() if mesh is None else mesh)
+    dtype = torch.float64 if _numpy_dtype(forces) == np.float64 else torch.float32
+    local = shard_frames(fm, [forces], pad=False, dtype=dtype)[0]
+    fmap_dev, resid_dev = _device_linear_fit(
+        local,
+        torch.as_tensor(labels, dtype=torch.int64, device=fm.device),
+        torch.as_tensor(np.asarray(cmap_mat), dtype=dtype, device=fm.device),
+        float(l2_regularization),
+        r=np.asarray(con_mat).shape[1],
+        reduce=fm.all_reduce,
+    )
+    fetched = torch.cat([fmap_dev.reshape(-1), resid_dev.reshape(1)]).cpu().numpy()
+    fmap_mat = fetched[:-1].reshape(fmap_dev.shape)
+    if return_resid:
+        return fmap_mat, float(fetched[-1])
+    return fmap_mat

@@ -253,19 +253,37 @@ def test_forced_escalation_solves_every_site_in_float64(system, unblocked):
 
 
 @pytest.mark.parametrize("resid_tol", [1e-4, -1.0], ids=["converged", "escalated"])
-def test_pipelined_blocks_equal_serial_blocks(system, monkeypatch, resid_tol):
+def test_pipelined_blocks_equal_serial_blocks(system, resid_tol):
     """The depth-1 pipeline only reorders host work: the coefficients are
-    the serial loop's, bit for bit, with and without escalation."""
+    those of a serial loop that fits one site, checks it and escalates it
+    before the next, bit for bit, with and without escalation."""
     coords, forces = system
-    coefs = {}
-    for flag in ("1", "0"):
-        monkeypatch.setenv("AGGFORCE_SWEEP_PIPELINE", flag)
-        fit = _fit(
-            pff.fused_gb_linear_map_blocked, coords, forces, site_block=1,
-            resid_tol=resid_tol,
+    fit = _fit(
+        pff.fused_gb_linear_map_blocked, coords, forces, site_block=1, resid_tol=resid_tol,
+    )
+    cmap = pt.LinearMap(SITES, n_fg_sites=N_ATOMS)
+    spec = pff.GBFeatSpec(outer=2.0, n_basis=4)
+    setup = pff._prepare_fused_setup(
+        pt.Trajectory(coords=coords, forces=forces), cmap, spec, set(GROUPS), "cpu"
+    )
+    coords_d, forces_d, mask = setup["trajectory"]
+    frame_idx = np.random.default_rng(7).choice(setup["t"], size=10, replace=False)
+    gram_fn = pff._gram_function("auto", torch.device("cpu"), 2048, tiled=True)
+    cmap_np = np.asarray(cmap.standard_matrix, dtype=np.float32)
+    serial = []
+    for site in range(len(SITES)):
+        coefs, resid, gram, rows, b = pff._fit_coefs(
+            coords_d, forces_d, mask, coords_d[torch.as_tensor(frame_idx)],
+            *setup["consts"], KBT, 1e3, spec, pff.SOLVER_DELTA, pff.SOLVER_ITERS,
+            gram_fn, tiled=True, cmap_rows=torch.as_tensor(cmap_np[[site]]),
+            site_sel=torch.eye(len(SITES))[[site]],
         )
-        coefs[flag] = np.stack(fit.force_map.tags["coef_list"])
-    np.testing.assert_array_equal(coefs["1"], coefs["0"])
+        coefs = coefs.numpy()
+        if not (float(resid[0]) <= resid_tol and np.isfinite(coefs).all()):
+            coefs = pff._host_solve(gram, rows, b)[0]
+        serial.append(coefs[0])
+    assert fit.force_map.tags["escalated"] == (len(SITES) if resid_tol < 0 else 0)
+    np.testing.assert_array_equal(np.stack(fit.force_map.tags["coef_list"]), np.stack(serial))
 
 
 @pytest.mark.parametrize(

@@ -22,7 +22,7 @@ import torch.distributed as dist
 import aggforce_torch as pt
 from aggforce_torch import parallel as par
 from aggforce_torch.io import TrajectoryStream, fused_gb_linear_map_streamed, qp_linear_map_streamed
-from aggforce_torch.parallel import batched_eqp_solve_shared_mesh
+from aggforce_torch.ops.eqp import batched_eqp_solve_shared_mesh
 from aggforce_torch.qp import cv as pcv
 from aggforce_torch.qp import fusedfeat as pff
 from aggforce_torch.utils.warmup import warm_featurized_fit

@@ -22,7 +22,7 @@ def test_import_pulls_in_no_jax():
         "aggforce_torch.qp.fusedfeat, aggforce_torch.utils.synth, "
         "aggforce_torch.constraints.finder, aggforce_torch.qp.qplinear, "
         "aggforce_torch.qp.basicagg, aggforce_torch.qp.cv, "
-        "aggforce_torch.native, aggforce_torch.utils.pdblite, "
+        "aggforce_torch.utils.pdblite, "
         "aggforce_torch.ops.eqp, aggforce_torch.ops.torchcore, aggforce_torch.agg, "
         "aggforce_torch.trajectory.gaussian, aggforce_torch.qp.gauss, "
         "aggforce_torch.qp.gauss_fused, aggforce_torch.mapval, aggforce_torch.models, "
@@ -355,31 +355,3 @@ def test_entry_points_need_cuda_unless_told(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(tmp_path) if entry is _load_map else entry()
-
-
-def test_native_build_writes_only_under_build_dir(monkeypatch):
-    """The native solver builds into aggforce_torch/_build/ under a name keyed
-    by the source, the flags and the host, and writes nothing else in the
-    package."""
-    from aggforce_torch import native
-
-    assert native.BUILD_DIR == PORT / "_build"
-    lib = native.library_path()
-    assert lib.parent == native.BUILD_DIR and lib.name.startswith("libadmm_qp_")
-    monkeypatch.setattr(native.platform, "node", lambda: "another-host")
-    assert native.library_path() != lib
-
-    def tree():
-        return {
-            p for p in PORT.rglob("*")
-            if "_build" not in p.parts and "__pycache__" not in p.parts
-        }
-
-    before = tree()
-    target = native.BUILD_DIR / "libadmm_qp_build_test.so"
-    try:
-        assert native._build(target) is None
-        assert target.exists()
-    finally:
-        target.unlink(missing_ok=True)
-    assert tree() == before

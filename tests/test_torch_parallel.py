@@ -64,7 +64,7 @@ WORKER = textwrap.dedent(
     import torch.distributed as dist
     import aggforce_torch as pt
     from aggforce_torch import parallel as par
-    from aggforce_torch.parallel import batched_eqp_solve_shared_mesh
+    from aggforce_torch.ops.eqp import batched_eqp_solve_shared_mesh
     from aggforce_torch.qp import cv as pcv
     from aggforce_torch.qp import fusedfeat as pff
     from aggforce_torch.utils.warmup import warm_featurized_fit
@@ -173,6 +173,38 @@ WORKER = textwrap.dedent(
                                 allow_fused=False, constraint_rng=np.random.default_rng(3),
                                 device="cpu")
     res["generic_single"] = gen.map_arrays(coords[:8], forces[:8])[1]
+    np.savez(out, **res)
+    dist.destroy_process_group()
+    """
+)
+
+LINEAR_WORKER = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    repo, rank, world, store, inputs, out = sys.argv[1:7]
+    sys.path.insert(0, repo)
+    import torch.distributed as dist
+    import aggforce_torch as pt
+    from aggforce_torch import parallel as par
+
+    par.initialize_distributed("file://" + store, int(world), int(rank), backend="gloo")
+    mesh = par.make_mesh(device="cpu")
+    d = np.load(inputs)
+    forces = d["forces"]
+    n_atoms = forces.shape[1]
+    cmap = pt.LinearMap([[i] for i in range(0, n_atoms, 3)], n_fg_sites=n_atoms)
+    groups = {frozenset((i, i + 1)) for i in range(0, 10, 2)}
+    traj = pt.Trajectory(coords=d["coords"], forces=forces)
+    res = {}
+    res["qp_linear"] = pt.qp_linear_map(
+        traj, cmap, groups, l2_regularization=0.5, mesh=mesh, device="cpu"
+    ).force_map.standard_matrix
+    con = pt.qp.make_bond_constraint_matrix(n_atoms, groups)
+    res["sharded_linear"] = par.sharded_linear_fit(forces, con, cmap.standard_matrix, 0.5, mesh)
     np.savez(out, **res)
     dist.destroy_process_group()
     """
@@ -357,6 +389,32 @@ def test_linear_mesh_fits_match_single_device_and_jax(ranks, system):
     for key in ("qp_linear", "sharded_linear"):
         np.testing.assert_allclose(ranks[0][key], single, atol=2e-4)
         np.testing.assert_allclose(ranks[0][key], np.asarray(jax_map), atol=2e-4)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_sharded_linear_fit_is_the_mesh_linear_fit(tmp_path, system, world):
+    """sharded_linear_fit is qp_linear_map(mesh=)'s device fit on the labels
+    of its duplication matrix: the same map bit for bit on every rank."""
+    coords, forces = system
+    np.savez(tmp_path / "inputs.npz", coords=coords, forces=forces)
+    out = run_workers(tmp_path, LINEAR_WORKER, world=world, extra=[str(tmp_path / "inputs.npz")])
+    for res in out:
+        assert res["sharded_linear"].shape == (len(SITES), N_ATOMS)
+        np.testing.assert_array_equal(res["sharded_linear"], res["qp_linear"])
+
+
+def test_sharded_linear_fit_refuses_a_matrix_that_is_not_one_hot(system):
+    """Only a one-hot duplication matrix has labels: any other raises before
+    a mesh is asked for."""
+    from aggforce_torch.parallel import sharded_linear_fit
+
+    _, forces = system
+    con = pt.qp.make_bond_constraint_matrix(N_ATOMS, GROUPS)
+    two_ones = con.copy()
+    two_ones[0, 1] = 1.0
+    for bad in (two_ones, 0.5 * con, con[:, :-1], con[0]):
+        with pytest.raises(ValueError, match="one-hot duplication matrix"):
+            sharded_linear_fit(forces, bad, _cmap().standard_matrix)
 
 
 def test_sharded_force_smoothness(ranks, system):

@@ -7,9 +7,7 @@ import pytest
 import torch
 
 import aggforce_torch as pt
-from aggforce_torch import native as pnative
 from aggforce_torch.convert import separable_map_from_numpy
-from aggforce_torch.ops.eqp import eqp_solve_host
 from aggforce_torch.qp import qplinear as pql
 from aggforce_torch.qp.basicagg import constraint_aware_uni_map as port_uni
 from aggforce_torch.utils.synth import synthesize_dimer_fixture, synthesize_trajectory
@@ -154,12 +152,9 @@ def test_device_fit_matches_jax_on_dimer(dimer):
     np.testing.assert_allclose(fp, np.repeat(np.eye(2), 3, axis=1), atol=5e-3)
 
 
-@pytest.mark.parametrize("backend", ["host", "native"])
+@pytest.mark.parametrize("backend", ["host"])
 def test_float64_backends_match_jax(system, backend):
-    """Both float64 backends against the JAX package's float64 fit. The JAX
-    native backend runs the same C++ source (see the next test); its fit is
-    taken through the JAX host backend, so this file never builds the JAX
-    package's library, which the JAX tests build in place."""
+    """The float64 backend against the JAX package's float64 fit."""
     coords, forces = system
     jmap = jql.qp_linear_map(
         jt.Trajectory(coords=coords, forces=forces),
@@ -325,41 +320,24 @@ def test_jax_fitted_linear_map_carries_over(system):
     np.testing.assert_allclose(pc, np.asarray(jc), rtol=1e-6, atol=1e-6)
 
 
-def test_native_solvers_are_the_jax_source_and_agree():
-    """The port's C++ source is the JAX package's, byte for byte; its KKT
-    solve meets the float64 host oracle, and its ADMM iteration, with and
-    without polish, meets the KKT solve."""
-    from pathlib import Path
-
-    import aggforce_tpu
-
-    jax_src = Path(aggforce_tpu.__file__).parent / "native" / "admm_qp.cpp"
-    assert pnative.SRC.read_bytes() == jax_src.read_bytes()
-    rng = np.random.default_rng(4)
-    x = rng.normal(size=(30, 8))
-    P, A = x.T @ x, rng.normal(size=(3, 8))
-    B = rng.normal(size=(3, 2))
-    kkt = pnative.eqp_solve_native(P, A, B)
-    np.testing.assert_allclose(kkt, eqp_solve_host(P, A, B), rtol=1e-9, atol=1e-10)
-    for polish in (True, False):
-        x_admm = pnative.admm_solve_native(P, A, B[:, 0], polish=polish, eps_abs=1e-11)
-        np.testing.assert_allclose(x_admm, kkt[:, 0], rtol=1e-6, atol=1e-7)
-    assert pnative.native_available() and pnative.native_build_error() is None
-
-
-def test_native_build_failure_raises(system, monkeypatch):
+@pytest.mark.parametrize("entry", ["qp_linear_map", "qp_feat_linear_map"])
+@pytest.mark.parametrize("backend", ["native", "lu", "hsot"])
+def test_unknown_backend_raises(system, entry, backend):
+    """A backend other than "auto", "device" or "host" is refused by name on
+    both entries, never run as the device solver."""
     coords, forces = system
-    monkeypatch.setattr(pnative, "_LIB", None)
-    monkeypatch.setattr(pnative, "_BUILD_ERROR", None)
-    monkeypatch.setattr(pnative, "library_path", lambda: pnative.BUILD_DIR / "missing.so")
-    monkeypatch.setattr(pnative, "_build", lambda lib: "native build failed: no g++")
-    with pytest.raises(RuntimeError, match="no g\\+\\+"):
-        pql.qp_linear_map(
-            pt.Trajectory(coords=coords, forces=forces),
-            pt.LinearMap(SITES, n_fg_sites=N_ATOMS), GROUPS,
-            solver_args={"backend": "native"},
-        )
-    assert not pnative.native_available()
+    traj = pt.Trajectory(coords=coords, forces=forces)
+    cmap = pt.LinearMap(SITES, n_fg_sites=N_ATOMS)
+    with pytest.raises(ValueError, match="'auto', 'device', 'host'"):
+        if entry == "qp_linear_map":
+            pql.qp_linear_map(
+                traj, cmap, GROUPS, solver_args={"backend": backend}, device="cpu"
+            )
+        else:
+            pt.qp_feat_linear_map(
+                traj, cmap, pt.id_feat, 1.0, constraints=GROUPS,
+                solver_args={"backend": backend}, device="cpu",
+            )
 
 
 def test_mesh_raises(system):
