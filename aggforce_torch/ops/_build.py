@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-SOURCES = ("site_grams.cu", "site_grams_tiled.cu", "pair_moments.cu")
+SOURCES = ("site_grams.cu", "site_grams_tiled.cu", "pair_moments.cu", "gb_apply.cu")
 
 NVCC_FLAGS = (
     "-gencode",

@@ -26,9 +26,12 @@ Every product here runs at full float32 precision whatever TF32 setting the
 process has chosen (``utils.device.full_fp32()`` scopes the entry points and
 the helpers that take products), as the JAX code's ``precision="highest"``.
 
-Map application is fused the same way: each frame chunk computes the
-geometry once and emits the mapped forces directly (FusedGBMap.__call__),
-with the protocol-compatible scale/trans closures kept for CLAMap API parity.
+Map application is fused the same way (FusedGBMap.__call__): on the card
+one launch of the hand-written kernel ``csrc/gb_apply.cu``
+(``ops.gb_apply``) maps a call's frames from per-group quantities; on the
+CPU each frame chunk computes the geometry once and emits the mapped forces
+directly (:func:`_fused_apply`). The protocol-compatible scale/trans
+closures are kept for CLAMap API parity.
 """
 
 import time
@@ -48,6 +51,7 @@ from ..ops.eqp import (
     converged,
     eqp_solve_host,
 )
+from ..ops.gb_apply import gb_apply, group_members
 from ..ops.gram import (
     mirror_tiles,
     pack_operands,
@@ -86,6 +90,25 @@ def _basis_centers(spec: GBFeatSpec) -> np.ndarray:
         spec.inner**spec.dist_power, spec.outer**spec.dist_power, spec.n_basis
     )
     return pow_grid ** (1.0 / spec.dist_power)
+
+
+def exact_centers(centers, spec: GBFeatSpec) -> np.ndarray:
+    """A map's basis centers in float64: the spec's own
+    (:func:`_basis_centers`) where ``centers`` are their float32 rounding,
+    as every fit and loader stores them, else ``centers`` as given.
+
+    The clip rule is a step: a term's derivative drops to 0 where
+    exp(-off^2) falls to ``clip``. Offsets from float32 centers (off by up
+    to 2e-7 at 5.56 A) put a few terms in a fit on the other side of that
+    step from the float64 definition, each a jump of clip * 2|off| / width
+    times its coefficient in the mapped force."""
+    given = np.asarray(centers, dtype=np.float64)
+    exact = _basis_centers(spec)
+    if exact.shape == given.shape and np.array_equal(
+        exact.astype(np.float32), given.astype(np.float32)
+    ):
+        return exact
+    return given
 
 
 def _group_feature_blocks(
@@ -429,6 +452,7 @@ class FusedGBMap(CLAMap):
     the G = force-term + kbt*div construction of the fit objective.
     """
 
+    # frames per application on the CPU, and per upload of numpy frames
     _APPLY_CHUNK = 4096
 
     def __init__(
@@ -461,6 +485,8 @@ class FusedGBMap(CLAMap):
         ) = device_consts
         self._kbt = float(kbt)
         self._spec = spec
+        self._host_geometry = (onehot, centers)
+        self._kernel_consts = None  # gb_apply's group lists and centers, made on first use
 
         def scale(copoints):
             return _fused_scale(
@@ -488,28 +514,50 @@ class FusedGBMap(CLAMap):
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _apply(self, points: torch.Tensor, copoints: torch.Tensor) -> torch.Tensor:
+        """Mapped forces of frames on the map's device: the kernel
+        (:func:`~aggforce_torch.ops.gb_apply.gb_apply`) on the card, the
+        plain :func:`_fused_apply` elsewhere."""
+        if self.device.type != "cuda":
+            return _fused_apply(
+                points, copoints, self._coefs, self._cmap_mat, self._group_mean,
+                self._onehot, self._counts, self._centers, self._kbt, self._spec,
+            )
+        if self._kernel_consts is None:
+            onehot, centers = self._host_geometry
+            self._kernel_consts = tuple(
+                torch.as_tensor(x, device=self.device)
+                for x in (*group_members(onehot), exact_centers(centers, self._spec))
+            )
+        offsets, atoms, centers64 = self._kernel_consts
+        return gb_apply(
+            points.contiguous(), copoints.contiguous(), self._coefs, self._cmap_mat,
+            offsets, atoms, self._counts, centers64, self._kbt, self._spec,
+        )
+
     @span("aggforce.apply")
     def __call__(self, points, copoints):
-        """Fused, frame-chunked application (type-preserving).
+        """Fused application (type-preserving).
 
-        Each chunk computes the geometry once and emits the mapped forces
-        directly, so long trajectories apply in bounded memory. Tensor
-        inputs yield a tensor on the map's device (chunks concatenate there);
-        numpy inputs are mapped on the device chunk by chunk and come back as
-        numpy, matching CLAMap semantics.
+        Tensor inputs yield a tensor on the map's device: on the card all
+        frames in one kernel launch, which holds nothing of size frames x
+        sites x groups; on the CPU in chunks of ``_APPLY_CHUNK`` frames
+        concatenated there, so long trajectories apply in bounded memory.
+        Numpy inputs are mapped on the device chunk by chunk and come back
+        as numpy, matching CLAMap semantics.
         """
         device_in = isinstance(points, torch.Tensor) or isinstance(
             copoints, torch.Tensor
         )
         t = points.shape[0]
+        step = self._APPLY_CHUNK
+        if device_in and self.device.type == "cuda":
+            step = max(t, 1)
         outs = []
-        for lo in range(0, t, self._APPLY_CHUNK):
-            hi = min(t, lo + self._APPLY_CHUNK)
-            mapped = _fused_apply(
-                self._to_device(points[lo:hi]),
-                self._to_device(copoints[lo:hi]),
-                self._coefs, self._cmap_mat, self._group_mean, self._onehot,
-                self._counts, self._centers, self._kbt, self._spec,
+        for lo in range(0, t, step):
+            hi = min(t, lo + step)
+            mapped = self._apply(
+                self._to_device(points[lo:hi]), self._to_device(copoints[lo:hi])
             )
             outs.append(mapped if device_in else mapped.cpu().numpy())
         if device_in:

@@ -29,7 +29,12 @@ fails:
    site-blocked fit (``site_block=3``, a ragged last block); a small input
    holds the kernel fit, the plain fit and the blocked fit to
    2e-3 * mean|f| of each other. A planted fault (a Gram without the
-   divergence term) must fail the Gram and the objective gates;
+   divergence term) must fail the Gram and the objective gates. The fit's
+   map applies through the apply kernel (csrc/gb_apply.cu), once per
+   4,096-frame chunk of numpy frames and once per call of card tensors,
+   within a derived fp32 bound of the float64 formula (the formula without
+   its divergence term must not be) and of the plain ``_fused_apply`` on
+   the card, the same bits twice; its and the plain path's times and bound;
 5. times: first fit, steady-state fits and a profiled fit's device time by
    kernel, each kernel (and its build and product stages) against its plain
    version, its library yardstick and two bounds (3xTF32 on the tensor
@@ -60,7 +65,10 @@ fails:
    the tiled kernel once per block and map to finite forces; its first
    block must lie near a float64 witness solved on the card (the planted
    fault must not), and its peak device memory must stay within 24 GiB;
-   then the fit's times and profile, and the tiled kernel's times;
+   its map through the apply kernel as in phase 4, on a 2,048-frame slice
+   and on the whole 20,000-frame window in one call, which may add to the
+   card's peak memory no more than its workspace (about 1.2 GB); then the fit's times and profile, and
+   the tiled kernel's times;
 7. the linear path, which runs no Gram kernel (both launch counts must
    read 0 after each of its runs, detection's kernel must have launched
    once per detection, and ``qplinear.fit_routes`` must show one device fit
@@ -103,7 +111,8 @@ fails:
    (7) no Gram kernel launches. Then times, a profiled fit and peak memory;
 9. one JSON line listing every kernel, printed after phase 15 (detection's
    launches counted on the paths of phases 5b, 7, 8, 10 and 12, not on the
-   mesh and examples);
+   mesh and examples; the apply kernel's on phase 4's fit and, as 0, on
+   those linear paths);
    the last line is the result;
 10. the generic featurizer path at config #3 width on 2,000 frames (cut
    from 10,000: it holds each site's (T, N, K_exp) features on the host, as
@@ -333,6 +342,20 @@ DETECT_REPS, DETECT_PLAIN_REPS = 50, 5
 # detection's launches of csrc/pair_moments.cu per driven path, filled by
 # read_counts and phase_cv_grids for the kernels line
 DETECT_LAUNCHES = {}
+# the featurized apply's kernel (csrc/gb_apply.cu): fp32 operations per
+# (frame, site, group, basis) term (the offset and its square, expf's
+# range reduction and polynomial, the clip rule, the derivative, two FMAs),
+# the card's ex2 rate (MUFU, 16 per SM and clock on 132 SMs at the 1.98 GHz
+# boost clock), the timing repetitions, what a call may add to the card's
+# peak memory beyond its workspace (``gb_apply.workspace_bytes``; the
+# allocator rounds its four blocks to 2 MiB), and its launches and reports
+# per driven path
+APPLY_FLOPS_PER_TERM = 20
+PEAK_EX2_PER_S = 16 * 132 * 1.98e9
+APPLY_REPS = 20
+APPLY_SLACK_BYTES = 4 * (2 << 20)
+APPLY_LAUNCHES = {}
+APPLY_REPORTS = {}
 
 
 def log(msg: str) -> None:
@@ -775,6 +798,120 @@ def phase_detection(torch, np, coords, groups, smi):
     }
 
 
+def apply_kernel_report(torch, label, fmap, coords, forces, check_frames, plain_step, smi):
+    """The featurized apply's kernel (``ops.gb_apply``, csrc/gb_apply.cu)
+    through ``fmap`` (a fitted ``FusedGBMap`` on the card) at one shape.
+    Gates: one launch per call of card tensors; the same bits twice; the
+    first ``check_frames`` frames within the derived fp32 bound of the
+    float64 formula (``gb_apply_witness``; the formula without its
+    divergence term, the planted fault, must not be) and within the plain
+    path's limit of ``_fused_apply`` on the card (that bound plus the
+    witness's bound for the plain path's fp32 geometry plus n u of the
+    terms' magnitudes for its n-term fp32 sums). Then its and the
+    plain path's device times (the plain one in ``plain_step``-frame calls,
+    as the benchmark's entries slice a sweep window), the bound (fp32
+    operations at 67 TFLOP/s or ex2 at the MUFU rate, or the bytes) and what
+    the call added to the card's peak memory. Returns the report."""
+    from aggforce_torch.ops.gb_apply import gb_apply, gb_apply_witness
+    from aggforce_torch.qp.fusedfeat import _fused_apply, exact_centers
+
+    t, n_atoms = forces.shape[0], forces.shape[1]
+    s_dim, n_groups = fmap._cmap_mat.shape[0], fmap._onehot.shape[1]
+    n_basis = fmap._spec.n_basis
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = gb_apply.launches
+    out = fmap(forces, coords)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    again = fmap(forces, coords)
+    launches = gb_apply.launches - before
+    bitwise = torch.equal(out.view(torch.int32), again.view(torch.int32))
+    del again
+
+    def plain(hi):
+        return torch.cat([
+            _fused_apply(
+                forces[lo : min(lo + plain_step, hi)], coords[lo : min(lo + plain_step, hi)],
+                fmap._coefs, fmap._cmap_mat, fmap._group_mean, fmap._onehot,
+                fmap._counts, fmap._centers, fmap._kbt, fmap._spec,
+            )
+            for lo in range(0, hi, plain_step)
+        ])
+
+    consts = (
+        fmap._coefs, fmap._cmap_mat, fmap._onehot, fmap._counts,
+        exact_centers(fmap._host_geometry[1], fmap._spec),
+    )
+    chunk = 32 if n_groups > 500 else 256
+    x, f = coords[:check_frames], forces[:check_frames]
+    value, bound, _ = gb_apply_witness(f, x, *consts, fmap._kbt, fmap._spec, chunk)
+    _, plain_bound, scale = gb_apply_witness(
+        f, x, *consts, fmap._kbt, fmap._spec, chunk, fp32_geometry=True
+    )
+    fault, _, _ = gb_apply_witness(f, x, *consts, 0.0, fmap._spec, chunk)
+    head = out[:check_frames].double()
+    worst = float(((head - value).abs() / bound).max())
+    fault_worst = float(((fault - value).abs() / bound).max())
+    plain_limit = bound + plain_bound + 2.0 * (
+        n_atoms + n_groups * (n_basis + 1)
+    ) * F32_EPS * scale
+    plain_head = plain(check_frames).double()
+    plain_worst = float(((head - plain_head).abs() / plain_limit).max())
+    rms = float(value.square().mean().sqrt())
+    err = float((head - value).abs().max()) / rms
+    plain_err = float((plain_head - value).abs().max()) / rms
+    del value, bound, plain_bound, scale, fault, head, plain_head
+    log(f"apply kernel, {label}: {launches} launches for 2 calls (must read 2); the "
+        f"same bits twice: {bitwise}; first {check_frames} frames off the float64 "
+        f"formula by at most {worst:.3g} of the derived bound (must be <= 1), the "
+        f"planted fault (no divergence term) by {fault_worst:.3g} (must exceed 1); off "
+        f"the plain path by {plain_worst:.3g} of its limit (must be <= 1); largest "
+        f"error over the rms force: kernel {err:.3g}, plain {plain_err:.3g}")
+    failed = []
+    if launches != 2:
+        failed.append(f"{launches} launches for two calls")
+    if not bitwise:
+        failed.append("two calls gave different bits")
+    if not worst <= 1.0:
+        failed.append("off the float64 formula beyond its bound")
+    if not fault_worst > 1.0:
+        failed.append("the bound does not reject the planted fault")
+    if not plain_worst <= 1.0:
+        failed.append("off the plain path beyond its limit")
+    if failed:
+        fail(f"apply kernel, {label}: " + "; ".join(failed))
+
+    def kernel():
+        return fmap(forces, coords)
+
+    warm_card(torch, kernel)
+    ms = cuda_ms(torch, kernel, APPLY_REPS)
+    plain_ms = cuda_ms(torch, lambda: plain(t), 1)
+    terms = t * s_dim * n_groups * n_basis
+    ops_ms = APPLY_FLOPS_PER_TERM * terms / PEAK_FP32_FLOPS * 1e3
+    ex2_ms = terms / PEAK_EX2_PER_S * 1e3
+    n_bytes = 4 * (2 * t * n_atoms * 3 + t * s_dim * 3)
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, ex2_ms, bytes_ms)
+    bound_by = "operations" if bound_ms == ops_ms else "ex2" if bound_ms == ex2_ms else "bytes"
+    log(f"apply kernel, {label}: {ms:.4f} ms per call (all three launches), plain "
+        f"_fused_apply in {plain_step}-frame calls {plain_ms:.3f} ms ({plain_ms / ms:.1f}x); "
+        f"bound {bound_ms:.4g} ms ({bound_by}: {terms:.4g} terms, "
+        f"{APPLY_FLOPS_PER_TERM} fp32 FLOP each at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s "
+        f"{ops_ms:.4g} ms, one ex2 each {ex2_ms:.4g} ms, {n_bytes:.4g} B {bytes_ms:.4g} "
+        f"ms), {ms / bound_ms:.2f}x the bound; the call added {peak / 2**20:.1f} MiB to "
+        f"the card's peak ({smi})")
+    report = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        peak_added_bytes=peak, max_gap_of_bound=worst, max_gap_of_plain_limit=plain_worst,
+        max_err_over_rms=err, plain_max_err_over_rms=plain_err,
+    )
+    APPLY_REPORTS[label] = report
+    return report
+
+
 def plain_fit(np, coords, forces, cmap, groups, featurizer, **kwargs):
     """The same fit with the plain Gram instead of the kernel: (map, forces)."""
     from aggforce_torch import Trajectory
@@ -996,10 +1133,11 @@ def small_input_parity(np):
         fail("; ".join(failed))
 
 
-def phase_main_path(torch, np, coords, forces, cmap, groups):
+def phase_main_path(torch, np, coords, forces, cmap, groups, smi):
     import aggforce_torch
     from aggforce_torch import Curry, Multifeaturize, gb_feat, id_feat
     from aggforce_torch import Trajectory
+    from aggforce_torch.ops.gb_apply import gb_apply
     from aggforce_torch.ops.gram import site_grams, site_grams_tiled
     from aggforce_torch.qp import fused_gb_linear_map_blocked, qp_feat_linear_map
     from aggforce_torch.qp.fusedfeat import recognize_canonical_featurizer
@@ -1008,7 +1146,7 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
         [id_feat, Curry(gb_feat, outer=OUTER, n_basis=N_BASIS, width=WIDTH)]
     )
     torch.cuda.reset_peak_memory_stats()
-    site_grams.launches = site_grams_tiled.launches = 0
+    site_grams.launches = site_grams_tiled.launches = gb_apply.launches = 0
     t0 = time.perf_counter()
     result = aggforce_torch.project_forces(
         coords, forces, cmap,
@@ -1030,6 +1168,8 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
         f"{time.perf_counter() - _T_START:.3f}")
     if launches < 1:
         fail("the main path did not launch site_grams")
+    # numpy frames go to the card in chunks of FusedGBMap._APPLY_CHUNK
+    read_applies("config #3 fit (project_forces, numpy frames)", -(-N_FRAMES // 4096))
 
     tmap = result["tmap"]
     mapped = np.asarray(result["mapped_forces"])
@@ -1059,6 +1199,11 @@ def phase_main_path(torch, np, coords, forces, cmap, groups):
         torch, np, coords, forces, cmap, groups, spec, tmap, plain_map, blocked_map
     )
     small_input_parity(np)
+    apply_kernel_report(
+        torch, "config #3 (10,000 frames, S 10, G 145)", tmap.force_map,
+        torch.as_tensor(coords, device="cuda"), torch.as_tensor(forces, device="cuda"),
+        1024, 4096, smi,
+    )
     return spec, launches, first_fit_s, peak_bytes, problem64
 
 
@@ -1520,6 +1665,7 @@ def sweep_kernel_times(torch, args, n_basis):
 
 def phase_sweep(torch, np, smi):
     from aggforce_torch import Trajectory
+    from aggforce_torch.ops.gb_apply import workspace_bytes
     from aggforce_torch.qp.fusedfeat import GBFeatSpec
 
     t0 = time.perf_counter()
@@ -1543,6 +1689,29 @@ def phase_sweep(torch, np, smi):
         torch, np, coords, forces, cmap, groups, spec,
         np.stack(tmap.force_map.tags["coef_list"]),
     )
+    apply_kernel_report(
+        torch, "sweep slice (2,048 frames, S 66, G 1,125)", tmap.force_map,
+        coords[:2048], forces[:2048], 128, 2048, smi,
+    )
+    window = apply_kernel_report(
+        torch, f"sweep window ({SWEEP_FRAMES} frames, S 66, G 1,125, one call)",
+        tmap.force_map, coords, forces, 64, 2048, smi,
+    )
+    fmap = tmap.force_map
+    # the call's float32 contiguous copy of an input that is not one already
+    copies = sum(
+        4 * x.numel() for x in (coords, forces)
+        if x.dtype != torch.float32 or not x.is_contiguous()
+    )
+    ceiling = workspace_bytes(
+        coords.shape[0], coords.shape[1], fmap._cmap_mat.shape[0], fmap._onehot.shape[1],
+        fmap._spec.n_basis,
+    ) + copies + APPLY_SLACK_BYTES
+    log(f"sweep window apply: peak ceiling {ceiling / 2**20:.1f} MiB (workspace, "
+        f"{copies / 2**20:.1f} MiB of input copies, allocator slack)")
+    if not window["peak_added_bytes"] <= ceiling:
+        fail(f"the sweep window's one apply call added {window['peak_added_bytes'] / 2**20:.0f} "
+             f"MiB to the card's peak, above its ceiling of {ceiling / 2**20:.0f} MiB")
     times = sweep_kernel_times(torch, block_args, spec.n_basis)
     log(f"sweep phase {time.perf_counter() - t0:.3f} s; sweep fit peak device "
         f"memory {peak_bytes / 2**30:.2f} GiB; {SWEEP_FRAMES / second_s:.1f} "
@@ -1575,19 +1744,35 @@ def rel_rms(torch, got, ref):
 def reset_counts():
     """Every launch and route count to 0, just before a path is driven."""
     from aggforce_torch.constraints.finder import pair_moments
+    from aggforce_torch.ops.gb_apply import gb_apply
     from aggforce_torch.ops.gram import site_grams, site_grams_tiled
     from aggforce_torch.qp.qplinear import fit_routes
 
     site_grams.launches = site_grams_tiled.launches = pair_moments.launches = 0
+    gb_apply.launches = 0
     fit_routes.clear()
 
 
-def read_counts(label, detections):
+def read_applies(label, applies):
+    """Fail unless the featurized apply's kernel (csrc/gb_apply.cu) launched
+    ``applies`` times since the counts were reset (one launch per
+    ``FusedGBMap`` call of card tensors, one per 4,096-frame chunk of numpy
+    frames, none on a linear path); record the count under ``label``."""
+    from aggforce_torch.ops.gb_apply import gb_apply
+
+    APPLY_LAUNCHES[label] = gb_apply.launches
+    log(f"{label}: gb_apply launches {gb_apply.launches} (must read {applies})")
+    if gb_apply.launches != applies:
+        fail(f"{label}: the apply kernel launched {gb_apply.launches} times, not {applies}")
+
+
+def read_counts(label, detections, applies=0):
     """Log the counts a linear path left, and fail unless both Gram kernels'
-    launch counts read 0 (the linear path runs no Gram kernel) and the
+    launch counts read 0 (the linear path runs no Gram kernel), the
     detection kernel's reads ``detections`` (one launch of
-    csrc/pair_moments.cu per detection on the card); record the latter
-    under ``label`` and return the fit routes the path took."""
+    csrc/pair_moments.cu per detection on the card) and the apply kernel's
+    ``applies`` (``read_applies``); record the detections under ``label``
+    and return the fit routes the path took."""
     from aggforce_torch.constraints.finder import pair_moments
     from aggforce_torch.ops.gram import site_grams, site_grams_tiled
     from aggforce_torch.qp.qplinear import fit_routes
@@ -1603,6 +1788,7 @@ def read_counts(label, detections):
     if pair_moments.launches != detections:
         fail(f"{label}: detection launched its kernel {pair_moments.launches} times, "
              f"not {detections}")
+    read_applies(label, applies)
     return routes
 
 
@@ -4544,7 +4730,7 @@ def main() -> int:
     ops, fold_ops, max_err = phase_kernels(torch, np, coords, forces, cmap, groups, spec)
     detection = phase_detection(torch, np, coords, groups, smi)
     spec, launches, first_fit_s, peak_bytes, problem64 = phase_main_path(
-        torch, np, coords, forces, cmap, groups
+        torch, np, coords, forces, cmap, groups, smi
     )
     log(f"first fit {first_fit_s:.3f} s; peak device memory of the main path "
         f"{peak_bytes / 2**20:.1f} MiB ({smi})")
@@ -4663,6 +4849,17 @@ def main() -> int:
             "launches": sum(DETECT_LAUNCHES.values()),
             "launches_by_path": dict(DETECT_LAUNCHES),
             **detection,
+        },
+        {
+            "name": "gb_apply",
+            "route": "cuda",
+            "source": "aggforce_torch/csrc/gb_apply.cu",
+            "replaces": "none (the JAX package's fused apply is XLA: "
+                        "aggforce_tpu/qp/fusedfeat.py:468)",
+            "launches": sum(APPLY_LAUNCHES.values()),
+            "launches_by_path": dict(APPLY_LAUNCHES),
+            **next(iter(APPLY_REPORTS.values())),
+            "at_shapes": dict(list(APPLY_REPORTS.items())[1:]),
         },
     ]
     log(f"process seconds {time.perf_counter() - _T_START:.3f}")

@@ -283,3 +283,291 @@ def test_config3_objective_matches_jax():
     assert gap(c_jax) <= 1e-4
     assert gap(c_port) <= 1e-4
     assert objective(c_port) == pytest.approx(objective(c_jax), rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The apply: the card's kernel (ops.gb_apply) and the CPU's plain path
+
+# two pairs and a three-atom group, so groups of 1, 2 and 3 atoms
+APPLY_GROUPS = {frozenset((0, 1)), frozenset((4, 5)), frozenset((10, 11)), frozenset((11, 12))}
+
+
+def _apply_operands(system, include_id, dtype, n_frames=40, n_basis=4):
+    """(points, copoints, coefs, consts, spec) of a FusedGBMap with seeded
+    coefficients over APPLY_GROUPS, as ``dtype`` tensors on the CPU; consts
+    are ``map_constants``' (cmap, onehot, counts, group_mean, centers)."""
+    coords, forces = system
+    cmap = pt.LinearMap(SITES, n_fg_sites=N_ATOMS)
+    spec = pff.GBFeatSpec(outer=2.0, n_basis=n_basis, include_id=include_id)
+    geom = pff.group_factorization(cmap, spec, APPLY_GROUPS)
+    g = geom["onehot"].shape[1]
+    coefs = np.random.default_rng(5).normal(size=(len(SITES), g * (n_basis + include_id)))
+    consts = pff.map_constants(
+        cmap.standard_matrix, geom["onehot"], geom["centers"], torch.device("cpu")
+    )
+
+    def cast(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype).contiguous()
+
+    cmap_t, onehot, counts, _, centers = (c.to(dtype) for c in consts)
+    # the group means' 1/count weights in ``dtype`` (1/3 is not a float32)
+    group_mean = (onehot / counts).T.contiguous()
+    return (
+        cast(forces[:n_frames]), cast(coords[:n_frames]), cast(coefs),
+        (cmap_t, onehot, counts, group_mean, centers), spec, geom,
+    )
+
+
+@pytest.mark.parametrize("include_id", [True, False])
+def test_cpu_apply_is_the_plain_path_bit_for_bit(system, include_id):
+    """A map on the CPU applies through ``_fused_apply``, chunk by chunk,
+    for tensors and numpy alike, and never reaches the kernel."""
+    from aggforce_torch.ops.gb_apply import gb_apply
+
+    points, copoints, coefs, consts, spec, geom = _apply_operands(
+        system, include_id, torch.float32
+    )
+    fmap = pff.FusedGBMap(
+        coefs, _sites_matrix(), geom["onehot"], geom["centers"], KBT, spec,
+        device="cpu",
+    )
+    cmap, onehot, counts, group_mean, centers = consts
+    before = gb_apply.launches
+    expect = pff._fused_apply(
+        points, copoints, coefs, cmap, group_mean, onehot, counts, centers, KBT, spec
+    )
+    got = fmap(points, copoints)
+    assert isinstance(got, torch.Tensor)
+    assert torch.equal(got, expect)
+    got_np = fmap(points.numpy(), copoints.numpy())
+    np.testing.assert_array_equal(got_np, expect.numpy())
+    assert gb_apply.launches == before
+    assert fmap._kernel_consts is None
+
+
+def _sites_matrix():
+    return pt.LinearMap(SITES, n_fg_sites=N_ATOMS).standard_matrix.astype(np.float32)
+
+
+def test_cpu_apply_chunks_long_inputs(system, monkeypatch):
+    """On the CPU a call longer than ``_APPLY_CHUNK`` frames applies chunk by
+    chunk, each chunk the plain path's bits on its frames."""
+    points, copoints, coefs, consts, spec, geom = _apply_operands(system, True, torch.float32)
+    fmap = pff.FusedGBMap(
+        coefs, _sites_matrix(), geom["onehot"], geom["centers"], KBT, spec, device="cpu"
+    )
+    calls = []
+    original = pff._fused_apply
+
+    def counted(p, *rest):
+        calls.append(p.shape[0])
+        return original(p, *rest)
+
+    monkeypatch.setattr(pff.FusedGBMap, "_APPLY_CHUNK", 16)
+    monkeypatch.setattr(pff, "_fused_apply", counted)
+    got = fmap(points, copoints)
+    assert calls == [16, 16, 8]
+    monkeypatch.setattr(pff.FusedGBMap, "_APPLY_CHUNK", 4096)
+    assert torch.equal(got, fmap(points, copoints))
+
+
+@pytest.mark.parametrize("include_id", [True, False])
+def test_group_sums_equal_the_atom_sums(system, include_id):
+    """The kernel's formula (``gb_apply_witness``: the group weights times
+    the groups' summed forces, count * sum_k dphi_k c_k * u for the
+    divergence) equals the plain path's atom sums (the (t, S, N) one-hot
+    spread and the (t, S, G, K, 3) divergence block), in float64 on the CPU."""
+    from aggforce_torch.ops.gb_apply import gb_apply_witness
+
+    points, copoints, coefs, consts, spec, _ = _apply_operands(
+        system, include_id, torch.float64
+    )
+    cmap, onehot, counts, group_mean, centers = consts
+    plain = pff._fused_apply(
+        points, copoints, coefs, cmap, group_mean, onehot, counts, centers, KBT, spec
+    )
+    grouped, _, _ = gb_apply_witness(
+        points, copoints, coefs, cmap, onehot, counts, centers, KBT, spec, frame_chunk=16
+    )
+    assert plain.dtype == grouped.dtype == torch.float64
+    scale = float(plain.abs().max())
+    np.testing.assert_allclose(grouped.numpy(), plain.numpy(), rtol=0, atol=1e-12 * scale)
+    # the identity is not vacuous: without the divergence term it fails
+    no_div, _, _ = gb_apply_witness(
+        points, copoints, coefs, cmap, onehot, counts, centers, 0.0, spec
+    )
+    assert float((no_div - plain).abs().max()) > 1e-6 * scale
+
+
+@pytest.mark.parametrize("include_id", [True, False])
+def test_witness_bound_holds_for_the_plain_fp32_path(system, include_id):
+    """The witness's rounding bound for fp32 geometry, widened by the plain
+    path's own fp32 sums (n u ``scale`` for its N-atom and G (K + 1)-column
+    contractions), holds the plain float32 path on the CPU; it and the
+    kernel's bound (fp64 geometry, tighter) are far below the terms'
+    magnitudes (they bound rounding, not the answer's size)."""
+    from aggforce_torch.ops.gb_apply import gb_apply_witness
+
+    points, copoints, coefs, consts, spec, _ = _apply_operands(
+        system, include_id, torch.float32
+    )
+    cmap, onehot, counts, group_mean, centers = consts
+    plain = pff._fused_apply(
+        points, copoints, coefs, cmap, group_mean, onehot, counts, centers, KBT, spec
+    )
+    value, bound, scale = gb_apply_witness(
+        points, copoints, coefs, cmap, onehot, counts, centers, KBT, spec,
+        fp32_geometry=True,
+    )
+    _, kernel_bound, _ = gb_apply_witness(
+        points, copoints, coefs, cmap, onehot, counts, centers, KBT, spec
+    )
+    n_terms = N_ATOMS + onehot.shape[1] * (spec.n_basis + 1)
+    limit = bound + 2.0 * n_terms * 2.0**-24 * scale
+    gap = (plain.double() - value).abs()
+    assert bool((gap <= limit).all()), float((gap / limit).max())
+    assert float((bound / scale).max()) < 1e-4
+    assert bool((kernel_bound < bound).all())
+
+
+def test_group_members_lists_each_group_in_atom_order(system):
+    from aggforce_torch.ops.gb_apply import group_members
+
+    geom = pff.group_factorization(
+        pt.LinearMap(SITES, n_fg_sites=N_ATOMS), pff.GBFeatSpec(outer=2.0), APPLY_GROUPS
+    )
+    offsets, atoms = group_members(geom["onehot"])
+    assert offsets.dtype == atoms.dtype == np.int32
+    assert offsets[0] == 0 and offsets[-1] == N_ATOMS == len(atoms)
+    np.testing.assert_array_equal(np.diff(offsets), geom["counts"])
+    groups = [tuple(atoms[offsets[g] : offsets[g + 1]]) for g in range(len(offsets) - 1)]
+    assert sorted(groups) == sorted(
+        {tuple(sorted(m)) for m in ({0, 1}, {4, 5}, {10, 11, 12})}
+        | {(j,) for j in range(N_ATOMS) if j not in {0, 1, 4, 5, 10, 11, 12}}
+    )
+    for g, members in enumerate(groups):
+        assert list(members) == sorted(members)
+        assert all(geom["onehot"][j, g] == 1 for j in members)
+    bad = geom["onehot"].copy()
+    bad[3] = 0.0  # atom 3 in no group
+    with pytest.raises(ValueError, match="exactly one group"):
+        group_members(bad)
+    bad[3, 0] = 0.5
+    with pytest.raises(ValueError, match="0s and 1s"):
+        group_members(bad)
+
+
+@pytest.mark.parametrize("dist_power", [1.0, 0.5])
+def test_exact_centers_are_the_specs_float64_centers(dist_power):
+    """The kernel's centers: the spec's float64 centers where the map holds
+    their float32 rounding (as every fit and loader stores them), so its
+    clip rule is decided on the float64 offsets; a map's own other centers
+    as given."""
+    spec = pff.GBFeatSpec(outer=8.0, n_basis=7, dist_power=dist_power)
+    exact = pff._basis_centers(spec)
+    stored = pff.group_factorization(
+        pt.LinearMap(SITES, n_fg_sites=N_ATOMS), spec, APPLY_GROUPS
+    )["centers"]
+    assert stored.dtype == np.float32
+    got = pff.exact_centers(stored, spec)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, exact)
+    if dist_power == 0.5:  # 5.56 A is not a float32: the two differ
+        assert not np.array_equal(stored.astype(np.float64), exact)
+    other = stored + np.float32(0.25)
+    np.testing.assert_array_equal(pff.exact_centers(other, spec), other.astype(np.float64))
+    np.testing.assert_array_equal(
+        pff.exact_centers(stored[:-1], spec), stored[:-1].astype(np.float64)
+    )
+
+
+def _kernel_args(system, include_id=True):
+    """gb_apply's arguments on the CPU (float32, the group lists int32, the
+    centers float64): valid in all but the device."""
+    from aggforce_torch.ops.gb_apply import group_members
+
+    points, copoints, coefs, consts, spec, geom = _apply_operands(
+        system, include_id, torch.float32
+    )
+    cmap, _, counts, _, _ = consts
+    offsets, atoms = (torch.as_tensor(x) for x in group_members(geom["onehot"]))
+    centers = torch.as_tensor(pff.exact_centers(geom["centers"], spec))
+    return dict(
+        points=points, copoints=copoints, coefs=coefs, cmap_mat=cmap,
+        offsets=offsets, atoms=atoms, counts=counts, centers=centers, kbt=KBT,
+        spec=spec,
+    )
+
+
+@pytest.mark.parametrize(
+    "case, match",
+    [
+        ("cpu", "CUDA card"),
+        ("float64", "must be torch.float32"),
+        ("int64_members", "must be torch.int32"),
+        ("float32_centers", "must be torch.float64"),
+        ("strided", "contiguous"),
+        ("frames", "copoints"),
+        ("coef_width", "coefs must be"),
+        ("coef_width_without_id", "coefs must be"),
+        ("numpy", "torch.Tensor"),
+        ("centers", "centers must be"),
+        ("offsets", "disagree"),
+    ],
+)
+def test_gb_apply_refuses_before_any_launch(system, monkeypatch, case, match):
+    """Every operand outside the kernel's contract raises before the library
+    is loaded or a launch counted: the device, dtypes, contiguity, frame
+    counts, and a coefficient width that is not G (n_basis + include_id)."""
+    from aggforce_torch.ops import gb_apply as mod
+
+    args = _kernel_args(system, include_id=case != "coef_width_without_id")
+
+    def no_library():
+        raise AssertionError("the library was reached")
+
+    monkeypatch.setattr(mod, "_lib", no_library)
+    if case == "float64":
+        args["points"] = args["points"].double()
+    elif case == "int64_members":
+        args["atoms"] = args["atoms"].long()
+    elif case == "float32_centers":
+        args["centers"] = args["centers"].float()
+    elif case == "strided":
+        args["copoints"] = args["copoints"].transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "frames":
+        args["copoints"] = args["copoints"][:-1].contiguous()
+    elif case == "coef_width":
+        args["coefs"] = args["coefs"][:, :-1].contiguous()
+    elif case == "coef_width_without_id":
+        # coefficients with the id block, given to a map without one
+        args["spec"] = dataclasses.replace(args["spec"], include_id=False)
+        g = args["counts"].shape[0]
+        args["coefs"] = torch.zeros((len(SITES), g * (args["spec"].n_basis + 1)))
+    elif case == "numpy":
+        args["points"] = args["points"].numpy()
+    elif case == "centers":
+        args["centers"] = args["centers"][:-1].contiguous()
+    elif case == "offsets":
+        args["offsets"] = args["offsets"][:-1].contiguous()
+    before = mod.gb_apply.launches
+    with pytest.raises((ValueError, TypeError), match=match):
+        mod.gb_apply(**args)
+    assert mod.gb_apply.launches == before
+
+
+def test_apply_kernel_source_has_no_fast_math_or_atomics():
+    """``csrc/gb_apply.cu`` keeps IEEE arithmetic (the fp32 ``expf``, fp64
+    square roots and divisions rounded to nearest) and a fixed order of
+    sums: no fast-math intrinsics, no atomics, no fast-math build flag."""
+    import re
+
+    from aggforce_torch.ops import _build
+
+    text = (_build.CSRC / "gb_apply.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", text)
+    for banned in ("__expf", "__logf", "__powf", "__fdividef", "__frcp_r", "__fsqrt_r[duz]",
+                   "__sinf", "__cosf", "atomic", "rsqrtf"):
+        assert not re.search(banned, code), banned
+    assert "expf(" in code and "__dsqrt_rn(" in code and "__ddiv_rn(" in code
+    assert not any("fast" in flag for flag in _build.NVCC_FLAGS)

@@ -178,10 +178,15 @@ def test_library_name_follows_headers(monkeypatch, tmp_path):
 
 
 def test_both_kernel_sources_are_built():
-    assert set(_build.SOURCES) == {"site_grams.cu", "site_grams_tiled.cu", "pair_moments.cu"}
-    pair = (_build.CSRC / "pair_moments.cu").read_text()
-    assert 'extern "C" int aggforce_pair_moments(' in pair
-    assert "#include \"gram_tc.cuh\"" not in pair
+    assert set(_build.SOURCES) == {
+        "site_grams.cu", "site_grams_tiled.cu", "pair_moments.cu", "gb_apply.cu"
+    }
+    for src, symbol in (
+        ("pair_moments.cu", "aggforce_pair_moments("), ("gb_apply.cu", "aggforce_gb_apply(")
+    ):
+        text = (_build.CSRC / src).read_text()
+        assert f'extern "C" int {symbol}' in text
+        assert "#include \"gram_tc.cuh\"" not in text
     headers = {h.name for h in _build.CSRC.glob("*.cuh")}
     assert headers == {"gram_tc.cuh"}
     for src, symbol in (
