@@ -15,7 +15,9 @@ reference's iterative OSQP loop. This module provides:
     cost matrices P: each P is factorized once and reused by every fit;
     :func:`batched_eqp_solve_shared_mesh` splits it over a mesh's ranks;
   * :func:`eqp_solve_host` — the float64 numpy/LAPACK oracle, the
-    escalation target of every fit;
+    escalation target of every fit, and :func:`batched_eqp_solve_kkt`, the
+    same method batched in torch (the cross validation's float64 solve on
+    the card);
   * :func:`converged` — the one rule that decides, from a device solve's
     residual and values, whether it stands or escalates to the oracle.
 
@@ -438,3 +440,43 @@ def eqp_solve_host(
     for _ in range(refine_iters):
         Z = Z + sl.lu_solve((lu, piv), rhs - K_true @ Z)
     return Z[:n]
+
+
+def batched_eqp_solve_kkt(
+    P: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    delta: float = 1e-12,
+    refine_iters: int = 4,
+):
+    """:func:`eqp_solve_host`'s method, batched in torch on the inputs'
+    device and dtype (float64 for the oracle's answer).
+
+    P: (b, n, n); A: (b, m, n); B: (b, m, k) -> ((b, n, k) minimizers of
+    x^T P x subject to A x = B, (b,) max equilibrated constraint violation
+    ``max |An x - Bn|``). Equilibrates as the oracle does, factors the
+    regularized KKT matrix [[Pn + delta I, An^T], [An, -delta I]] by LU and
+    refines ``refine_iters`` times against the unregularized one, all
+    without a host sync.
+    """
+    n, m = P.shape[-1], A.shape[-2]
+    p_scale = torch.diagonal(P, dim1=-2, dim2=-1).sum(-1) / n + 1e-300
+    Pn = P / p_scale[:, None, None]
+    row_norm = torch.linalg.norm(A, dim=-1, keepdim=True) + 1e-300
+    An, Bn = A / row_norm, B / row_norm
+    k_true = torch.cat(
+        [
+            torch.cat([Pn, An.transpose(1, 2)], dim=2),
+            torch.cat([An, An.new_zeros(An.shape[0], m, m)], dim=2),
+        ],
+        dim=1,
+    )
+    reg = torch.cat([P.new_full((n,), delta), P.new_full((m,), -delta)])
+    lu, piv = torch.linalg.lu_factor(k_true + torch.diag(reg))
+    rhs = torch.cat([Bn.new_zeros(Bn.shape[0], n, Bn.shape[2]), Bn], dim=1)
+    z = torch.linalg.lu_solve(lu, piv, rhs)
+    for _ in range(refine_iters):
+        z = z + torch.linalg.lu_solve(lu, piv, rhs - torch.matmul(k_true, z))
+    x = z[:, :n]
+    resid = torch.amax(torch.abs(Bn - torch.matmul(An, x)), dim=(1, 2))
+    return x, resid

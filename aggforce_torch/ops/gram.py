@@ -45,6 +45,11 @@ _ENTRIES = {
     False: ("site_grams.cu", "aggforce_site_grams"),
     True: ("site_grams_tiled.cu", "aggforce_site_grams_tiled"),
 }
+# the float64 Gram's entry: no running tiles and no stage times
+_F64_ENTRY = ("site_grams.cu", "aggforce_site_grams_f64")
+_F64_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [
+    ctypes.c_void_p
+]
 
 # the product stage's output tile edge (kTile of csrc/gram_tc.cuh) and the
 # build stage's frame block (kFrameBlock), the unit of a frame chunk
@@ -62,7 +67,7 @@ def _kernel(source: str, symbol: str):
     from . import _build
 
     fn = getattr(_build.load(source), symbol)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _F64_ARGTYPES if (source, symbol) == _F64_ENTRY else _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -125,6 +130,34 @@ def _launch(tiled, gpos, cg, fg, mask, centers, kcounts, n_basis, width, clip, s
             f"{symbol} refused the workspace: workspace_shapes and csrc/gram_tc.cuh "
             f"disagree on its layout (chunk {tc}, scratch {scratch_shape}, "
             f"running {running_shape})"
+        )
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed (cudaError {err})")
+    return out
+
+
+def _launch_f64(gpos, cg, fg, mask, centers, kcounts, n_basis, width, clip):
+    """Launch the float64 Gram (``aggforce_site_grams_f64``) on the
+    operands' current stream and return its (S, K_pad, K_pad) output; the
+    zeroed row scratch is allocated here, as in :func:`_launch`."""
+    s_dim, t, g_pad = cg.shape[0], gpos.shape[1], gpos.shape[2]
+    k_pad = g_pad * (1 + n_basis)
+    out = torch.empty((s_dim, k_pad, k_pad), dtype=torch.float64, device=gpos.device)
+    tc, scratch_shape, _ = workspace_shapes(t, s_dim, k_pad)
+    scratch = torch.zeros(scratch_shape, dtype=torch.float32, device=gpos.device)
+    source, symbol = _F64_ENTRY
+    with torch.cuda.device(gpos.device):
+        stream = torch.cuda.current_stream(gpos.device).cuda_stream
+        err = _kernel(source, symbol)(
+            gpos.data_ptr(), cg.data_ptr(), fg.data_ptr(), mask.data_ptr(),
+            centers.data_ptr(), kcounts.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), s_dim, t, g_pad, n_basis, tc, scratch_shape[1],
+            1.0 / width, -2.0 / width, clip, stream,
+        )
+    if err == _BAD_WORKSPACE:
+        raise RuntimeError(
+            f"{symbol} refused the workspace: workspace_shapes and csrc/gram_tc.cuh "
+            f"disagree on its layout (chunk {tc}, scratch {scratch_shape})"
         )
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed (cudaError {err})")
@@ -229,26 +262,36 @@ def site_grams(
     n_basis: int,
     width: float,
     clip: float,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """All-site featurized Grams: returns (S, K_pad, K_pad) float32.
+    """All-site featurized Grams: returns (S, K_pad, K_pad) of ``out_dtype``.
 
     CUDA tensors go to the hand-written kernel (``csrc/site_grams.cu``),
     built on first use; each launch adds one to ``site_grams.launches``, and
     in debug mode (``utils.debug``) its output is checked for NaN. CPU
     tensors go to :func:`site_grams_plain`. Any T is taken; G_pad must be a
     multiple of 16, and every operand float32, contiguous and on one device.
+
+    ``out_dtype`` float32 takes the tensor cores' 3xTF32 Gram; float64 the
+    exact products of the same float32 rows summed in fp64 on the CUDA cores
+    (3.4x the time on an H100: 6.4 against 1.9 ms for a 2,000-frame fold at
+    S 10, K_pad 1,280), for a solve that amplifies the Gram's rounding: the
+    3xTF32 sums read a positive entry low, ~2.4e-7 on the diagonal at
+    config #4's fold shapes, where the fp64 sums read it unbiased.
     """
     gk = (gpos.shape[-1] * n_basis,)
     _check_operands(
         gpos, cg, fg, mask, centers_flat=(centers_flat, gk),
         kbt_counts_flat=(kbt_counts_flat, gk),
     )
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"out_dtype must be float32 or float64, not {out_dtype}")
     args = (gpos, cg, fg, mask, centers_flat, kbt_counts_flat, n_basis, width, clip)
     if gpos.device.type == "cpu":
-        return site_grams_plain(*args)
+        return site_grams_plain(*args, out_dtype=out_dtype)
     if gpos.device.type != "cuda":
         raise ValueError(f"site_grams runs on CUDA or CPU, not {gpos.device}")
-    out = _launch(False, *args)
+    out = _launch_f64(*args) if out_dtype == torch.float64 else _launch(False, *args)
     site_grams.launches += 1
     # the kernel bypasses torch's dispatch, so debug mode checks it here
     check_finite("site_grams", out)
@@ -269,24 +312,27 @@ def site_grams_plain(
     width: float,
     clip: float,
     t_chunk: int = 1024,
+    out_dtype=None,
 ) -> torch.Tensor:
     """Plain-torch twin of the kernel (same layout and arithmetic).
 
-    A torch version of the JAX package's ``reference_site_grams``, in the
-    operands' dtype and chunked over ``t_chunk`` frames so the materialized
+    A torch version of the JAX package's ``reference_site_grams``, the rows
+    in the operands' dtype, their products summed in ``out_dtype`` (default:
+    the operands'), chunked over ``t_chunk`` frames so the materialized
     (S, 3*t_chunk, K_pad) rows stay bounded.
     """
     _, t, g_pad = gpos.shape
     s_dim = cg.shape[0]
     k_pad = g_pad * (1 + n_basis)
     inv_w = 1.0 / width
-    out = torch.zeros((s_dim, k_pad, k_pad), dtype=gpos.dtype, device=gpos.device)
+    out_dtype = gpos.dtype if out_dtype is None else out_dtype
+    out = torch.zeros((s_dim, k_pad, k_pad), dtype=out_dtype, device=gpos.device)
     for lo in range(0, t, t_chunk):
         hi = min(t, lo + t_chunk)
         rows = design_rows(
             gpos[:, lo:hi], cg[:, :, lo:hi], fg[:, lo:hi], mask[lo:hi],
             centers_flat, kbt_counts_flat, n_basis, inv_w, clip,
-        )
+        ).to(out_dtype)
         out += torch.matmul(rows.transpose(1, 2), rows)
     return out
 

@@ -18,18 +18,27 @@ the procedure collapses algebraically:
     (and identically for featurized maps with the featurized Gram), so no
     data is ever re-mapped.
 
-Numerical contract: the batched float32 solves report their max
+Numerical contract: the batched device solves report their max
 equilibrated constraint violation; cells exceeding ``resid_tol`` are
 recomputed with the float64 oracle from the same device Grams (counted in
-``qplinear.fit_routes["cv_escalated_cells"]``). At severely
-under-regularized grid points the holdout quadratic form amplifies Gram
-rounding by the train system's condition number, in any implementation.
+``qplinear.fit_routes["cv_escalated_cells"]``). The featurized CV solves on
+the device with the oracle's own method in float64
+(``ops.eqp.batched_eqp_solve_kkt``), on fold Grams that the Gram kernel
+sums in fp64 from exact products of the float32 rows: the holdout score is
+first-order in the coefficients, and the train system's conditioning at a
+small l2 amplifies any bias of the Gram. The float32 solver's fixed ridge
+(1e-6 of the mean diagonal, 26 at config #4's width) moved the scores at
+l2 = 1e1 by 5-12% (0.3-1.3% at 1e2), and the 3xTF32 Gram's low diagonal (a
+negative ridge of ~6) by up to 5%; with the oracle's method a cell's score
+does not hang on whether it escalates. What is left is the float32 rows'
+own rounding, amplified by the conditioning.
 
 Every product runs at full float32 precision whatever TF32 setting the
 process has chosen (``utils.device.full_fp32()``), as the JAX code's
 ``precision="highest"``.
 """
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,7 +46,12 @@ import torch
 
 from ..constraints import Constraints
 from ..map import LinearMap
-from ..ops.eqp import batched_eqp_solve_auglag, converged, eqp_solve_host
+from ..ops.eqp import (
+    batched_eqp_solve_auglag,
+    batched_eqp_solve_kkt,
+    converged,
+    eqp_solve_host,
+)
 from ..ops.gram import site_grams
 from ..parallel.mesh import FrameMesh, as_frame_mesh, mesh_device, shard_frames
 from ..trajectory import Trajectory
@@ -89,9 +103,10 @@ def _linear_solve_scores(
     flat_p = p_all.reshape(n_l2 * k, *grams.shape[1:])
     flat_a = a_mat.expand(n_l2 * k, *a_mat.shape)
     flat_b = basis.expand(n_l2 * k, *basis.shape)
-    x, resids = batched_eqp_solve_auglag(
-        flat_p, flat_a, flat_b, iters=40, return_resid=True
-    )  # (n_l2*k, R, S)
+    with span("aggforce.solve"):
+        x, resids = batched_eqp_solve_auglag(
+            flat_p, flat_a, flat_b, iters=40, return_resid=True
+        )  # (n_l2*k, R, S)
     x = x.reshape(n_l2, k, *x.shape[1:])
     gx = torch.einsum("fij,lfjs->lfis", grams, x)
     qf = torch.sum(x * gx, dim=(2, 3))
@@ -105,12 +120,14 @@ def _featurized_solve_scores(
     l2_vec: torch.Tensor,  # (n_l2,)
 ):
     """Every (l2, fold, site) featurized fit + holdout score in one batched
-    solve, enqueued without a host sync.
+    float64 solve, the host oracle's method on the device
+    (``batched_eqp_solve_kkt``), enqueued without a host sync.
 
     Returns the (n_l2, k) holdout quadratic forms summed over sites, and
     each (l2, fold) cell's equilibrated constraint violation, that of its
-    worst site (the diagnostic for float64 escalation).
+    worst site (the diagnostic for escalation to the host oracle).
     """
+    grams, rows, b_all, l2_vec = (x.to(torch.float64) for x in (grams, rows, b_all, l2_vec))
     k, s_dim, k_exp = grams.shape[0], grams.shape[1], grams.shape[-1]
     n_l2 = l2_vec.shape[0]
     g_total = torch.sum(grams, dim=0)
@@ -120,9 +137,8 @@ def _featurized_solve_scores(
     flat_p = p_all.reshape(flat, k_exp, k_exp)
     flat_a = rows.expand(n_l2, *rows.shape).reshape(flat, rows.shape[2], k_exp)
     flat_b = b_all.expand(n_l2, *b_all.shape).reshape(flat, -1, 1)
-    x, resids = batched_eqp_solve_auglag(
-        flat_p, flat_a, flat_b, iters=40, return_resid=True, host_checks=False
-    )
+    with span("aggforce.solve"):
+        x, resids = batched_eqp_solve_kkt(flat_p, flat_a, flat_b)
     x = x[..., 0].reshape(n_l2, k, s_dim, k_exp)
     gx = torch.einsum("fsij,lfsj->lfsi", grams, x)
     qf = torch.sum(x * gx, dim=(2, 3))
@@ -161,20 +177,18 @@ def _host_featurized_scores(
     qf: np.ndarray,  # (n_l2, k) device scores, overwritten where cells fail
     cells: np.ndarray,  # (n_l2, k) bool: True -> recompute this cell
 ) -> np.ndarray:
-    """Float64 oracle for failing featurized (l2, fold) cells."""
-    k, s_dim, k_exp = grams.shape[0], grams.shape[1], grams.shape[-1]
-    g_total = grams.sum(axis=0, dtype=np.float64)
-    eye = np.eye(k_exp)
+    """Float64 oracle for failing featurized (l2, fold) cells: the device
+    solve's method (:func:`batched_eqp_solve_kkt`) on the host, a cell's
+    sites in one batch."""
+    g, a, b = (torch.as_tensor(x, dtype=torch.float64) for x in (grams, rows, b_all))
+    g_total = g.sum(dim=0)
+    eye = torch.eye(g.shape[-1], dtype=torch.float64)
     for i, l2 in enumerate(l2_values):
-        for f in range(k):
+        for f in range(g.shape[0]):
             if not cells[i, f]:
                 continue
-            total = 0.0
-            for s in range(s_dim):
-                p = g_total[s] - grams[f, s] + float(l2) * eye
-                x = eqp_solve_host(p, rows[f, s], b_all[f, s][:, None])[:, 0]
-                total += x @ grams[f, s].astype(np.float64) @ x
-            qf[i, f] = total
+            x, _ = batched_eqp_solve_kkt(g_total - g[f] + float(l2) * eye, a[f], b[f][..., None])
+            qf[i, f] = float(torch.einsum("si,sij,sj->", x[..., 0], g[f], x[..., 0]))
     return qf
 
 
@@ -192,6 +206,14 @@ def _l2_blocks(
     return max(1, min(n_l2, budget // per_l2))
 
 
+def _kkt_bytes(k_exp: int, m_rows: int) -> int:
+    """Live device bytes of one featurized (l2, fold, site) problem of the
+    batched float64 solve: the cost matrix and the (K + m)-square KKT
+    matrix, its regularized copy, its LU factors and a product's
+    temporary."""
+    return 8 * 4 * (k_exp + m_rows) ** 2
+
+
 def _score_table(l2_values, qf_all: np.ndarray, denoms: np.ndarray):
     """{l2: (mean, sd, k)} from per-(l2, fold) quadratic forms and denoms."""
     out = {}
@@ -203,6 +225,7 @@ def _score_table(l2_values, qf_all: np.ndarray, denoms: np.ndarray):
     return out
 
 
+@span("aggforce.entry")
 @full_fp32()
 def linear_map_cv(
     coords,
@@ -281,19 +304,26 @@ def linear_map_cv(
         # float32 solve did not converge on SOME (l2, fold) cells: redo
         # exactly those with the float64 oracle, reusing the device Grams
         fit_routes["cv_escalated_cells"] += int(bad.sum())
-        qf_all = _host_linear_scores(
-            grams.cpu().numpy().astype(np.float64),
-            a_mat.cpu().numpy().astype(np.float64),
-            basis.cpu().numpy().astype(np.float64),
-            ridge.cpu().numpy().astype(np.float64),
-            l2_values,
-            qf_all,
-            bad,
-        )
+        with span("aggforce.escalate"):
+            qf_all = _host_linear_scores(
+                grams.cpu().numpy().astype(np.float64),
+                a_mat.cpu().numpy().astype(np.float64),
+                basis.cpu().numpy().astype(np.float64),
+                ridge.cpu().numpy().astype(np.float64),
+                l2_values,
+                qf_all,
+                bad,
+            )
     denoms = np.array(
         [3 * len(idx) * coord_map.n_cg_sites for idx in folds], dtype=np.float64
     )
     return _score_table(l2_values, qf_all, denoms)
+
+
+# the fold Grams' kernel: exact products of the float32 rows summed in fp64
+# (the 3xTF32 sums read the diagonal ~2.4e-7 low, a negative ridge of ~6 at
+# config #4's fold shapes, which moved the scores at l2 = 1e1 by up to 5%)
+_fold_grams = functools.partial(site_grams, out_dtype=torch.float64)
 
 
 def _featurized_cv_problem(
@@ -307,12 +337,12 @@ def _featurized_cv_problem(
     n_constraint_frames: int,
     rng: np.random.Generator,
     device: DeviceLike = None,
-    gram_fn=site_grams,
+    gram_fn=_fold_grams,
     mesh: Optional[FrameMesh] = None,
 ):
     """The featurized CV's device problem: (heldout Grams (k, S, K, K),
-    constraint rows (k, S, m, K), targets (k, S, m), folds, each fold's
-    constraint frames (k, F)).
+    float64 by default, constraint rows (k, S, m, K), targets (k, S, m),
+    folds, each fold's constraint frames (k, F)).
 
     The folds are drawn first, then each fold's constraint sample from its
     train frames (``n_constraint_frames`` clamped to the smallest train
@@ -403,15 +433,15 @@ def fused_gb_cv(
 
     Each fold's heldout featurized Gram is one launch of the Gram kernel on
     that fold's frames, train Grams come from subtraction, every (l2, fold,
-    site) constrained fit is one problem of a batched solve per memory
-    block, and holdout scores are Gram quadratic forms. ``spec`` is the
+    site) constrained fit is one problem of a batched float64 solve per
+    memory block, and holdout scores are Gram quadratic forms. ``spec`` is the
     ``GBFeatSpec`` of the featurization. Returns {l2: (mean holdout score,
     sample sd, n_folds)}, scores as ``force_smoothness`` of the mapped
     holdout forces. ``device`` (default: the GPU, or the device of tensor
     inputs) is where the Grams and solves run; the host syncs once for the
     whole grid.
 
-    Unconverged float32 solves (equilibrated constraint violation above
+    Unconverged device solves (equilibrated constraint violation above
     ``resid_tol``, NaN-aware) escalate exactly those (l2, fold) cells to the
     float64 oracle, reusing the device Grams; they are counted in
     ``qplinear.fit_routes["cv_escalated_cells"]``.
@@ -429,19 +459,19 @@ def fused_gb_cv(
         coords, forces, coord_map, constraints, kbt, spec, n_folds,
         n_constraint_frames, rng, device, mesh=fm,
     )
-    # every (l2, fold, site) fit + score: one solve per memory block. Live
-    # factors per problem: the augmented operator and its Cholesky (~3 K^2
-    # plus the Gram), Z (K x m) and three m x m Schur factors
+    # every (l2, fold, site) fit + score: one float64 solve per memory block
     k_exp, m_rows, s_dim = grams.shape[-1], rows.shape[2], grams.shape[1]
-    per_problem = 4 * (4 * k_exp * k_exp + k_exp * m_rows + 3 * m_rows * m_rows)
-    block = _l2_blocks(len(l2_values), per_problem, n_folds * s_dim)
+    block = _l2_blocks(len(l2_values), _kkt_bytes(k_exp, m_rows), n_folds * s_dim)
+    # the fold Grams are float64 already (0.84 GB at K_exp 1,450); the
+    # constraint rows are promoted once, not in every block
+    grams64, rows64, b64 = (x.to(torch.float64) for x in (grams, rows, b_all))
     qf_blocks = []
     resids = []
     for i in range(0, len(l2_values), block):
         l2_vec = torch.as_tensor(
-            list(l2_values[i : i + block]), dtype=torch.float32, device=grams.device
+            list(l2_values[i : i + block]), dtype=torch.float64, device=grams.device
         )
-        qf, resid = _featurized_solve_scores(grams, rows, b_all, l2_vec)
+        qf, resid = _featurized_solve_scores(grams64, rows64, b64, l2_vec)
         qf_blocks.append(qf)
         resids.append(resid)
     # the one host sync of the grid
@@ -449,17 +479,18 @@ def fused_gb_cv(
     qf_all, resid_all = fetched[0].copy(), fetched[1]
     bad = ~converged(resid_all, resid_tol, qf_all)
     if bad.any():
-        # float32 solve unconverged on SOME (l2, fold) cells: redo exactly
+        # the device solve failed the rule on SOME (l2, fold) cells: redo exactly
         # those with the float64 oracle, reusing the device Grams
         fit_routes["cv_escalated_cells"] += int(bad.sum())
-        qf_all = _host_featurized_scores(
-            grams.cpu().numpy().astype(np.float64),
-            rows.cpu().numpy().astype(np.float64),
-            b_all.cpu().numpy().astype(np.float64),
-            l2_values,
-            qf_all,
-            bad,
-        )
+        with span("aggforce.escalate"):
+            qf_all = _host_featurized_scores(
+                grams.cpu().numpy().astype(np.float64),
+                rows.cpu().numpy().astype(np.float64),
+                b_all.cpu().numpy().astype(np.float64),
+                l2_values,
+                qf_all,
+                bad,
+            )
     denoms = np.array([3 * len(idx) * s_dim for idx in folds], dtype=np.float64)
     return _score_table(l2_values, qf_all, denoms)
 

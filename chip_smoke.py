@@ -39,12 +39,13 @@ fails:
    kernel, each kernel (and its build and product stages) against its plain
    version, its library yardstick and two bounds (3xTF32 on the tensor
    cores, the route it takes, and fp32 on the CUDA cores), peak device
-   memory; kernel 1 also at the fold shape;
+   memory; kernel 1 also at the fold shape, and its float64 Gram (the CV's)
+   there and at the edge shapes against its plain version summed in float64;
    (a) config #4, ``fused_gb_cv`` at the shape of bench.py's run_cv (phase
    4's fixture, 5 folds, l2 1e0 to 1e5, 20 constraint frames): five kernel-1
-   launches per CV; every cell that did not escalate within 1e-4 plus
-   cond * 2**-24 of a float64 witness solved on the card (the problem the
-   solver poses; the distance to the unridged optimum is printed); the
+   launches per CV; every cell, and each l2's score, within 1e-7 plus
+   cond * 2**-50 of a float64 witness solved on the card apart from the
+   program, on the CV's own float64 fold Grams; the
    refit of (fold 0, l2 1e3) scored by force_smoothness within 2e-3 of its
    cell, and a CV on fold Grams without the divergence term outside it;
    times, frames/s, a profiled CV and a solve block's peak memory;
@@ -258,17 +259,21 @@ WITNESS_BLOCK = 3_000
 CV_L2S = [1e0, 1e1, 1e2, 1e3, 1e4, 1e5]
 CV_FOLDS = 5
 CV_SEED = 11
-# a CV cell that did not escalate against the float64 score of the problem
-# its solver poses on the same Grams, relative; the refit of one cell,
-# scored by force_smoothness of its mapped holdout forces, against the cell
-# (tests/test_cv_fast.py:118). The solver (JAX's algorithm) factors
-# P / p + DELTA * I, p the mean of P's diagonal, and refines the
-# constraints but not the ridge away: the float64 witness takes the same
-# ridge, and the distance to the unridged optimum is printed beside it. A
-# float32 solve resolves a cell to about cond * 2**-24 (the reference's own
-# contract, aggforce_tpu/qp/cv.py:25-34), so a cell's limit is CV_REL_LIMIT
-# plus that, with cond the largest over the cell's sites.
+# a linear CV's score against float64 scores, relative; the refit of one
+# featurized CV cell, scored by force_smoothness of its mapped holdout
+# forces, against the cell (tests/test_cv_fast.py:118)
 CV_REL_LIMIT = 1e-4
+# a featurized CV cell against its float64 witness on the same float64 fold
+# Grams, relative. The CV solves each (l2, fold, site) problem in float64
+# (LU of the equilibrated KKT matrix, four refinements), so the two differ
+# by float64 rounding, about cond * 2**-52 with cond the largest over the
+# cell's sites; the limit is CV_F64_REL_LIMIT plus 4x that. A solve that
+# took back the float32 solver's ridge (1e-6 of the mean diagonal) moves
+# the scores far more at the small l2 values (6e-3 at l2 = 1, 2e-5 at 1e2,
+# 7e-6 at 1e3 on the tests' 40-atom system).
+CV_F64_REL_LIMIT = 1e-7
+F64_EPS = 2.0**-50
+# the float32 device solver's ridge on the normalized Gram
 SOLVER_DELTA = 1e-6
 F32_EPS = 2.0**-24
 REFIT_REL_LIMIT = 2e-3
@@ -540,13 +545,56 @@ def phase_kernels(torch, np, coords, forces, cmap, groups, spec):
     errs.append(compare_kernel(
         torch, fold_ops, spec.n_basis, f"config #4 CV fold, T={len(fold)}"
     ))
+    compare_kernel_f64(
+        torch, fold_ops, spec.n_basis, f"config #4 CV fold, T={len(fold)}", timed=True
+    )
     for i, (g, t, s, nb) in enumerate(
         [(5, 37, 1, 4), (17, 1007, 3, 7), (145, 333, 2, 7), (16, 16, 1, 1)]
     ):
         edge = random_operands(torch, g, t, s, nb, seed=100 + i)
         label = f"G_pad={edge[0].shape[2]} T={t} S={s} n_basis={nb} masked"
         errs.append(compare_kernel(torch, edge, nb, label))
+        compare_kernel_f64(torch, edge, nb, label)
     return ops, fold_ops, max(errs)
+
+
+def compare_kernel_f64(torch, ops, n_basis, label, timed=False):
+    """Kernel 1's float64 Gram (the CV's fold Grams) against its plain
+    version summed in float64: within GRAM_REL_LIMIT of the largest entry
+    (the two build the float32 rows by different float32 operations),
+    exactly symmetric, and its diagonal's mean relative bias printed beside
+    the 3xTF32 kernel's (which reads a positive sum low). With ``timed``
+    both kernels' times. Returns the error."""
+    from aggforce_torch.ops.gram import site_grams, site_grams_plain
+
+    args = (*ops, n_basis, WIDTH, 1e-3)
+    got = site_grams(*args, out_dtype=torch.float64)
+    want = site_grams_plain(*args, out_dtype=torch.float64)
+    tf32 = site_grams(*args).double()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    diag = torch.diagonal(want, dim1=1, dim2=2)
+    live = diag > 1e-9 * diag.max()
+
+    def bias(x):
+        return float(((torch.diagonal(x, dim1=1, dim2=2) - diag)[live] / diag[live]).mean())
+
+    log(f"site_grams float64 vs plain float64 [{label}]: max abs err / max entry "
+        f"{err:.3e} (limit {GRAM_REL_LIMIT:.0e}); diagonal's mean relative bias "
+        f"{bias(got):+.2e} (3xTF32 kernel {bias(tf32):+.2e})")
+    if not err <= GRAM_REL_LIMIT:
+        fail(f"site_grams float64 disagrees with its plain version at {label}")
+    if not torch.equal(got, got.transpose(1, 2)):
+        fail(f"site_grams float64 is not symmetric at {label}")
+    if timed:
+        f64_ms = cuda_ms(torch, lambda: site_grams(*args, out_dtype=torch.float64), reps=5)
+        tf32_ms = cuda_ms(torch, lambda: site_grams(*args), reps=5)
+        s_dim, t, k_pad = ops[1].shape[0], ops[0].shape[1], ops[0].shape[2] * (1 + n_basis)
+        flops = 3.0 * t * s_dim * k_pad * (k_pad + 1)
+        log(f"site_grams float64 [{label}]: {f64_ms:.3f} ms per launch "
+            f"({flops / f64_ms / 1e9:.2f} TFLOP/s of unique padded entries), 3xTF32 "
+            f"{tf32_ms:.3f} ms")
+    return err
 
 
 def cuda_ms(torch, fn, reps):
@@ -2443,15 +2491,14 @@ def phase_linear_sweep(torch, np, smi):
         f"GiB ({smi})")
 
 
-def cv_witness(torch, grams, rows, b_all, l2s, ridge):
+def cv_witness(torch, grams, rows, b_all, l2s):
     """Float64 scores (n_l2, k) of every (l2, fold) cell, solved on the card
     apart from the program: ``eqp_solve_host``'s algorithm (equilibrated
     KKT system regularized by 1e-12, LU, four refinement sweeps against the
-    unregularized system), batched over sites. ``ridge`` adds the device
-    solver's SOLVER_DELTA ridge to each normalized train Gram. Also returns
-    each cell's largest condition number over its sites (n_l2, k): the
-    largest eigenvalue by 30 power steps over the least one's lower bound,
-    the normalized l2 plus the ridge (the Gram is positive semidefinite)."""
+    unregularized system), batched over sites. Also returns each cell's
+    largest condition number over its sites (n_l2, k): the largest
+    eigenvalue by 30 power steps over the least one's lower bound, the
+    normalized l2 (the Gram is positive semidefinite)."""
     g = grams.double()
     a = rows.double()
     k, s_dim, n = g.shape[0], g.shape[1], g.shape[-1]
@@ -2465,14 +2512,13 @@ def cv_witness(torch, grams, rows, b_all, l2s, ridge):
     for i, l2 in enumerate(l2s):
         p = g.sum(0)[None] - g + l2 * eye_n
         scale = torch.diagonal(p, dim1=2, dim2=3).sum(-1) / n + 1e-300
-        shift = SOLVER_DELTA if ridge else 0.0
-        pn = p / scale[..., None, None] + shift * eye_n
+        pn = p / scale[..., None, None]
         v = torch.ones((k, s_dim, n, 1), dtype=torch.float64, device=g.device)
         for _ in range(30):
             v = pn @ v
             v = v / torch.linalg.norm(v, dim=2, keepdim=True)
         top_eig = torch.linalg.norm(pn @ v, dim=2)[..., 0]
-        cond[i] = torch.amax(top_eig / (l2 / scale + shift), dim=1).cpu()
+        cond[i] = torch.amax(top_eig / (l2 / scale), dim=1).cpu()
         top = torch.cat([pn, an.transpose(2, 3)], dim=3)
         k_true = torch.cat([top, torch.cat([an, torch.zeros_like(eye_m).expand(k, s_dim, m, m)], dim=3)], dim=2)
         k_reg = k_true + 1e-12 * torch.block_diag(eye_n, -eye_m)
@@ -2491,10 +2537,10 @@ def cv_cells(torch, np, grams, rows, b_all, denoms):
     ``fused_gb_cv``'s memory blocks: (scores (n_l2, k) float64, residuals
     (n_l2, k), [(l2 values of a block, its peak device bytes above what was
     allocated before it, its predicted bytes)])."""
-    from aggforce_torch.qp.cv import _featurized_solve_scores, _l2_blocks
+    from aggforce_torch.qp.cv import _featurized_solve_scores, _kkt_bytes, _l2_blocks
 
     k_exp, m_rows, s_dim = grams.shape[-1], rows.shape[2], grams.shape[1]
-    per_problem = 4 * (4 * k_exp * k_exp + k_exp * m_rows + 3 * m_rows * m_rows)
+    per_problem = _kkt_bytes(k_exp, m_rows)
     block = _l2_blocks(len(CV_L2S), per_problem, CV_FOLDS * s_dim)
     qfs, resids, peaks = [], [], []
     for i in range(0, len(CV_L2S), block):
@@ -2503,7 +2549,7 @@ def cv_cells(torch, np, grams, rows, b_all, denoms):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         qf, resid = _featurized_solve_scores(
-            grams, rows, b_all, torch.as_tensor(l2s, dtype=torch.float32, device="cuda")
+            grams, rows, b_all, torch.as_tensor(l2s, dtype=torch.float32, device=grams.device)
         )
         torch.cuda.synchronize()
         peaks.append((l2s, torch.cuda.max_memory_allocated() - base,
@@ -2516,53 +2562,40 @@ def cv_cells(torch, np, grams, rows, b_all, denoms):
 
 def cv_cell_gate(torch, np, table, grams, rows, b_all, folds, escalated):
     """Phase 5's gate of a config-#4 CV table on the fold Grams, constraint
-    rows and targets it was computed from: every (l2, fold) cell the CV did
-    not escalate within CV_REL_LIMIT + cond * 2**-24 of a float64 witness of
-    the problem its solver poses, each l2's score the mean of its cells
-    where none escalated, and ``escalated`` cells counted as the residuals
-    say. Escalated cells (the float64 host oracle's, on Grams of condition
-    up to ~1e7 at l2 = 1) are printed beside the witness, not gated.
-    Returns the cells, the witnesses, the escalation mask, the limits, the
-    denominators and the failures."""
+    rows and targets it was computed from: every (l2, fold) cell within
+    CV_F64_REL_LIMIT + 4 * cond * 2**-52 of a float64 witness solved apart
+    from the program on the same Grams, each l2's score (escalated cells
+    hold the host oracle's, the same method) within its largest cell limit
+    of the witness's mean, and ``escalated`` cells counted as the residuals
+    say. Returns the cells, the witnesses, the escalation mask, the limits,
+    the denominators and the failures."""
     denoms = np.array([3 * len(f) * grams.shape[1] for f in folds], dtype=np.float64)
     cells, resid, peaks = cv_cells(torch, np, grams, rows, b_all, denoms)
     for l2s, peak, predicted in peaks:
         log(f"  solve block l2 {l2s}: peak device memory {peak / 2**30:.3f} GiB above "
             f"the Grams (predicted by _l2_blocks' accounting {predicted / 2**30:.3f} GiB)")
     t0 = time.perf_counter()
-    exact = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=False)[0] / denoms
-    posed, cond = cv_witness(torch, grams, rows, b_all, CV_L2S, ridge=True)
-    posed = posed / denoms
-    limit = CV_REL_LIMIT + cond * F32_EPS
-    log(f"  float64 witness on the card, all {cells.size} cells with and without "
-        f"the solver's ridge: {time.perf_counter() - t0:.2f} s")
+    exact, cond = cv_witness(torch, grams, rows, b_all, CV_L2S)
+    exact = exact / denoms
+    limit = CV_F64_REL_LIMIT + cond * F64_EPS
+    log(f"  float64 witness on the card, all {cells.size} cells: "
+        f"{time.perf_counter() - t0:.2f} s (fold Grams {grams.dtype})")
     esc = ~(resid <= 1e-4)  # NaN-aware, as fused_gb_cv decides
-    rel = np.abs(cells - posed) / np.abs(posed)
-    bias = np.abs(posed - exact) / np.abs(exact)
+    rel = np.abs(cells - exact) / np.abs(exact)
     failed = []
     for i, l2 in enumerate(CV_L2S):
         got = table[float(l2)][0]
-        # escalated cells hold the host oracle's scores: their sum, read back
-        # from the CV's mean, beside the witness's
-        host_sum = CV_FOLDS * got - float(cells[i][~esc[i]].sum())
-        if esc[i].any():
-            log(f"  l2 {l2:g}: escalated cells sum to {host_sum:.10g} in the CV, "
-                f"{float(exact[i][esc[i]].sum()):.10g} in the card's float64 witness "
-                f"(condition up to {cond[i].max():.3g})")
-        log(f"  l2 {l2:g}: CV score {got:.8g}; float64 witness {posed[i].mean():.8g} "
-            f"with the solver's ridge, {exact[i].mean():.8g} without (ridge bias "
-            f"{bias[i].max():.2e}); condition up to {cond[i].max():.3g}, limit "
+        table_rel = abs(got - exact[i].mean()) / abs(exact[i].mean())
+        log(f"  l2 {l2:g}: CV score {got:.10g}; float64 witness {exact[i].mean():.10g} "
+            f"(rel {table_rel:.2e}); condition up to {cond[i].max():.3g}, limit "
             f"{limit[i].max():.2e}; cells rel err {', '.join(f'{x:.2e}' for x in rel[i])}; "
             f"residuals {', '.join(f'{x:.1e}' for x in resid[i])}; escalated folds "
             f"{np.nonzero(esc[i])[0].tolist()}")
-        if not esc[i].any() and not abs(got - cells[i].mean()) <= 1e-6 * abs(got):
-            failed.append(f"the CV's score at l2 {l2:g} is not its cells' mean")
-    worst = float(np.max(np.where(esc, 0.0, rel / limit)))
-    li = CV_L2S.index(1e3)
-    log(f"  config #4: {int(esc.sum())} escalated cells; the others against the "
-        f"float64 witness of the posed problem: largest rel err / its limit "
-        f"{worst:.3e} (must be <= 1); largest rel err at l2 >= 1e3 "
-        f"{float(np.max(np.where(esc, 0.0, rel)[li:])):.3e}")
+        if not table_rel <= limit[i].max():
+            failed.append(f"the CV's score at l2 {l2:g} misses its float64 witness")
+    worst = float(np.max(rel / limit))
+    log(f"  config #4: {int(esc.sum())} escalated cells; every cell against the "
+        f"float64 witness: largest rel err / its limit {worst:.3e} (must be <= 1)")
     if int(esc.sum()) != escalated:
         failed.append(f"the CV escalated {escalated} cells, its residuals say {int(esc.sum())}")
     if not worst <= 1.0:
@@ -2572,8 +2605,9 @@ def cv_cell_gate(torch, np, table, grams, rows, b_all, folds, escalated):
 
 def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
     """Config #4: ``fused_gb_cv`` at the shape of bench.py's run_cv on the
-    card. Gates: five launches of kernel 1 per CV; every cell that did not
-    escalate within CV_REL_LIMIT of float64 scores from the same Grams; the
+    card. Gates: five launches of kernel 1 per CV; every cell within
+    CV_F64_REL_LIMIT + 4 * cond * 2**-52 of float64 scores from the same
+    Grams (``cv_cell_gate``); the
     refit of (fold 0, l2 = 1e3), scored by force_smoothness of its mapped
     holdout forces, within REFIT_REL_LIMIT of the cell, and a CV on fold
     Grams without the divergence term (the planted fault) outside it. Then
@@ -2584,6 +2618,7 @@ def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
     from aggforce_torch.qp.cv import (
         _featurized_cv_problem,
         _featurized_solve_scores,
+        _fold_grams,
         _host_featurized_scores,
         fused_gb_cv,
     )
@@ -2622,7 +2657,7 @@ def phase_cv_config4(torch, np, coords_np, forces_np, cmap, groups, spec, smi):
         f"{N_FRAMES / cv_min:.1f} frames/s (min), {N_FRAMES / cv_med:.1f} frames/s "
         f"(median); all {', '.join(f'{x:.4f}' for x in cv_s)} s ({smi})")
 
-    def problem(gram_fn=site_grams):
+    def problem(gram_fn=_fold_grams):
         return _featurized_cv_problem(
             coords, forces, cmap, constraints, KBT, spec, CV_FOLDS, 20,
             np.random.default_rng(CV_SEED), gram_fn=gram_fn,

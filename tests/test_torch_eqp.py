@@ -62,6 +62,30 @@ def test_shared_solve_matches_host_oracle(seed):
             assert np.linalg.norm(xp[f, s] - expect) <= 1e-3 * np.linalg.norm(expect)
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+@pytest.mark.parametrize("repeat_rows", [False, True], ids=["distinct", "repeated-rows"])
+def test_batched_kkt_solve_is_the_host_oracle(seed, repeat_rows):
+    """The oracle's method batched in torch float64 gives the oracle's
+    answer, also where constraint rows repeat exactly (each site's own row
+    over the sampled frames): the same equilibration, the same regularized
+    KKT matrix and refinement, only LAPACK's sums in another order."""
+    P, A, B = _problems(seed)
+    if repeat_rows:
+        A[:, :, 1] = A[:, :, 0]
+        B[:, :, 1] = B[:, :, 0]
+    f, s, m, n = A.shape
+    flat = lambda x: torch.as_tensor(x, dtype=torch.float64).reshape(f * s, *x.shape[2:])  # noqa: E731
+    x, resid = peqp.batched_eqp_solve_kkt(
+        torch.as_tensor(P, dtype=torch.float64).expand(f, s, n, n).reshape(f * s, n, n),
+        flat(A), flat(B),
+    )
+    assert x.dtype == torch.float64 and float(resid.max()) <= 1e-12
+    for i in range(f):
+        for j in range(s):
+            expect = peqp.eqp_solve_host(P[j], A[i, j], B[i, j])
+            np.testing.assert_allclose(x[i * s + j].numpy(), expect, rtol=1e-9, atol=1e-12)
+
+
 def test_single_fit_bit_equal_to_fit_in_batch():
     """Per-problem masking makes a fit's numbers independent of its batch."""
     P, A, B = _problems(5, f=4)

@@ -105,6 +105,33 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     torch.testing.assert_close(got, pgram.site_grams_plain(*args), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_float64_gram_sums_the_float32_rows_in_float64(case):
+    """out_dtype float64 is the Gram of the float32 design rows with every
+    product and sum in float64 (the CV's fold Grams); float32 stays the
+    float32 sum."""
+    _, p, mask, k = _packed(case)
+    gpos, cg, fg, cf, kc = p
+    args = (gpos, cg, fg, torch.as_tensor(mask), cf, kc, k, WIDTH, CLIP)
+    got = pgram.site_grams(*args, out_dtype=torch.float64)
+    rows = pgram.design_rows(*args[:6], k, 1.0 / WIDTH, CLIP)
+    assert rows.dtype == torch.float32 and got.dtype == torch.float64
+    expect = torch.matmul(rows.double().transpose(1, 2), rows.double())
+    torch.testing.assert_close(got, expect, rtol=1e-13, atol=1e-13 * float(expect.abs().max()))
+    assert torch.equal(got, got.transpose(1, 2))
+    assert pgram.site_grams(*args).dtype == torch.float32
+
+
+def test_wrapper_rejects_other_out_dtypes():
+    _, p, mask, k = _packed(CASES[0])
+    gpos, cg, fg, cf, kc = p
+    with pytest.raises(ValueError, match="out_dtype"):
+        pgram.site_grams(
+            gpos, cg, fg, torch.as_tensor(mask), cf, kc, k, WIDTH, CLIP,
+            out_dtype=torch.float16,
+        )
+
+
 def _bad_operands(kind):
     _, p, mask, k = _packed(CASES[0])
     gpos, cg, fg, cf, kc = p
@@ -235,6 +262,22 @@ def test_argtypes_match_the_c_entry(tiled):
             raise AssertionError(f"unexpected parameter {decl!r}")
     assert kinds == pgram._ARGTYPES
     assert "int tc, int k_alloc" in " ".join(params.split())
+
+
+def test_float64_argtypes_match_the_c_entry():
+    """The float64 entry's ctypes argument list is its C parameter list:
+    the operands, the float64 output and the scratch (no running tiles),
+    the sizes and the chunk layout, the row constants, the stream."""
+    source, symbol = pgram._F64_ENTRY
+    text = (_build.CSRC / source).read_text()
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1)
+    decls = [" ".join(x.split()) for x in params.split(",")]
+    kinds = [
+        ctypes.c_void_p if "*" in d else ctypes.c_int if d.startswith("int ") else ctypes.c_float
+        for d in decls
+    ]
+    assert kinds == pgram._F64_ARGTYPES
+    assert "double* out" in decls and "int tc" in decls and "int k_alloc" in decls
 
 
 def test_stage_times_needs_the_card():

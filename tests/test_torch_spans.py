@@ -8,6 +8,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import aggforce_torch as pt
+from aggforce_torch.agg import project_forces_grid_cv
+from aggforce_torch.qp import cv as pcv
 from aggforce_torch.qp.featlinearmap import Multifeaturize, id_feat, qp_feat_linear_map
 from aggforce_torch.qp.feat import gb_feat
 from aggforce_torch.qp.fusedfeat import GBFeatSpec, fused_gb_linear_map, fused_gb_linear_map_blocked
@@ -158,6 +160,50 @@ def test_planted_escalation_records_the_escalate_span(system, kind):
         # the host solve runs after the device solve it replaces
         solves = [s for s in spans if s[0] == "aggforce.solve" and s[2] <= sp[1]]
         assert solves
+
+
+def _feat_grid_cv(coords, forces):
+    feats = [
+        Multifeaturize([id_feat, Curry(gb_feat, outer=SPEC.outer, n_basis=n)]) for n in (2, 3)
+    ]
+    return project_forces_grid_cv(
+        {"featurizer": feats, "l2_regularization": [1e2, 1e3]}, coords, forces, n_folds=3,
+        rng=np.random.default_rng(0), fast=True, coord_map=_cmap(), constrained_inds=GROUPS,
+        method=qp_feat_linear_map, kbt=KBT, n_constraint_frames=6, device="cpu",
+    )
+
+
+def _linear_cv(coords, forces):
+    return pcv.linear_map_cv(
+        coords, forces, _cmap(), GROUPS, l2_values=[1e2, 1e3], n_folds=3,
+        rng=np.random.default_rng(0), device="cpu",
+    )
+
+
+# (call, its aggforce.entry spans: one a featurizer of the grid)
+CROSS_VALIDATIONS = {"featurized_grid": (_feat_grid_cv, 2), "linear": (_linear_cv, 1)}
+
+
+@pytest.mark.parametrize("kind", sorted(CROSS_VALIDATIONS))
+def test_cross_validation_escalates_inside_its_entry(system, kind, monkeypatch):
+    """Every (l2, fold) cell escalated: the float64 oracle, its copy of the
+    Grams to the host included, is an aggforce.escalate span inside the
+    CV's aggforce.entry, after the batched solve it replaces."""
+    monkeypatch.setattr(
+        pcv, "converged", lambda resid, tol, *values, **kw: np.zeros(np.shape(resid), dtype=bool)
+    )
+    fn, n_entries = CROSS_VALIDATIONS[kind]
+    _, spans = _recorded(lambda: fn(*system))
+    names = _names(spans)
+    assert names[0] == "aggforce.entry"
+    assert names.count("aggforce.entry") == n_entries
+    assert names.count("aggforce.escalate") == n_entries
+    for sp in spans:
+        if sp[0] != "aggforce.entry":
+            assert _inside(sp, spans, "aggforce.entry"), sp
+        if sp[0] == "aggforce.escalate":
+            assert [s for s in spans if s[0] == "aggforce.solve" and s[2] <= sp[1]]
+    assert {"aggforce.gram", "aggforce.solve"} <= set(names)
 
 
 def test_span_never_calls_record_function_without_a_profiler(system, monkeypatch):
